@@ -1,0 +1,58 @@
+"""Deterministic synthetic Pancreas-format dataset trees.
+
+Counterpart of `_ellipsoid_volume` and `make_pancreas` in
+dycon_paper_replication_tpu/data/synthetic.py: a tree
+{root}/{train,test,test1}.list + Pancreas_data/<case>, each case an
+`image` float32 volume with a random ellipsoid "lesion" in `label`. Cases
+are .h5 files, as the dataset ships; `write_case` also writes a case as a
+numpy .npz archive of the same arrays, which needs no h5py.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+def _ellipsoid_volume(rng: np.random.Generator, shape) -> tuple[np.ndarray, np.ndarray]:
+    zz, yy, xx = np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape], indexing="ij")
+    center = [rng.uniform(0.3 * s, 0.7 * s) for s in shape]
+    radii = [rng.uniform(0.1 * s, 0.25 * s) for s in shape]
+    d = (
+        ((zz - center[0]) / radii[0]) ** 2
+        + ((yy - center[1]) / radii[1]) ** 2
+        + ((xx - center[2]) / radii[2]) ** 2
+    )
+    label = (d <= 1.0).astype(np.uint8)
+    image = 0.4 * label + 0.1 * rng.standard_normal(shape).astype(np.float32)
+    image = (image - image.min()) / (image.max() - image.min() + 1e-8)
+    return image.astype(np.float32), label
+
+
+def write_case(path: str, image: np.ndarray, label: np.ndarray) -> None:
+    """One case file: .npz with numpy, anything else as .h5 with h5py."""
+    if path.endswith(".npz"):
+        np.savez(path, image=image, label=label)
+        return
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("image", data=image)
+        f.create_dataset("label", data=label)
+
+
+def make_pancreas(root: str, n_train: int = 8, n_test: int = 3, shape=(72, 72, 56),
+                  seed: int = 1):
+    """Pancreas-like tree: {root}/{train,test,test1}.list + Pancreas_data/."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "Pancreas_data"), exist_ok=True)
+    train = [f"PANCREAS_{i:04d}.h5" for i in range(n_train)]
+    test = [f"PANCREAS_t{i:04d}.h5" for i in range(n_test)]
+    for fname, items in (("train.list", train), ("test.list", test), ("test1.list", test)):
+        with open(os.path.join(root, fname), "w") as f:
+            f.write("\n".join(items) + "\n")
+    for name in train + test:
+        image, label = _ellipsoid_volume(rng, shape)
+        write_case(os.path.join(root, "Pancreas_data", name), image, label)
+    return train, test

@@ -1,0 +1,65 @@
+"""Resampling and pooling of channels-last (B, D1, D2, D3, C) volumes.
+
+Counterpart of dycon_paper_replication_tpu/ops/resize.py, with the same
+coordinate conventions:
+  * align_corners=False (half-pixel centers, the decoder's 2x upsample):
+        src = (dst + 0.5) * in / out - 0.5, clamped at 0;
+  * align_corners=True (the projection head):  src = dst * (in-1) / (out-1).
+Source indices are clamped to the valid range.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _axis_lerp(x: torch.Tensor, axis: int, out_size: int, align_corners: bool) -> torch.Tensor:
+    """Linearly resample one axis of `x` to `out_size`."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    dst = torch.arange(out_size, dtype=torch.float32, device=x.device)
+    if align_corners:
+        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        src = dst * scale
+    else:
+        src = ((dst + 0.5) * (in_size / out_size) - 0.5).clamp(min=0.0)
+    lo = src.floor().to(torch.int64).clamp(0, in_size - 1)
+    hi = (lo + 1).clamp(0, in_size - 1)
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    w = (src - lo.to(torch.float32)).to(x.dtype).reshape(shape)
+    x_lo = x.index_select(axis, lo)
+    x_hi = x.index_select(axis, hi)
+    return x_lo + (x_hi - x_lo) * w
+
+
+def trilinear_resize(x: torch.Tensor, out_spatial: tuple[int, int, int],
+                     align_corners: bool = False,
+                     spatial_axes: tuple[int, int, int] = (1, 2, 3)) -> torch.Tensor:
+    """Resize the three spatial axes of a 5-D volume to `out_spatial`."""
+    for axis, size in zip(spatial_axes, out_spatial):
+        x = _axis_lerp(x, axis, size, align_corners)
+    return x
+
+
+def upsample2x(x: torch.Tensor, spatial_axes: tuple[int, int, int] = (1, 2, 3)) -> torch.Tensor:
+    """Trilinear 2x upsample with half-pixel centers, in closed form:
+    out[2i] = 0.25 x[i-1] + 0.75 x[i], out[2i+1] = 0.75 x[i] + 0.25 x[i+1],
+    edges clamped."""
+    for axis in spatial_axes:
+        n = x.shape[axis]
+        prev = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+        nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+        even = 0.25 * prev + 0.75 * x
+        odd = 0.75 * x + 0.25 * nxt
+        st = torch.stack([even, odd], dim=axis + 1)
+        x = st.reshape(*x.shape[:axis], 2 * n, *x.shape[axis + 1:])
+    return x
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2x2 stride-2 max pool over the spatial axes of (B, D1, D2, D3, C)."""
+    b, d1, d2, d3, c = x.shape
+    x = x.reshape(b, d1 // 2, 2, d2 // 2, 2, d3 // 2, 2, c)
+    return x.amax(dim=(2, 4, 6))
