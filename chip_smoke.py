@@ -3,25 +3,57 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout and drives the port's main
-path, Pancreas sliding-window evaluation of a full-width UNet3D checkpoint,
+Builds the port's CUDA kernels from the checkout and drives the port's two
+paths, Pancreas sliding-window evaluation and Pancreas DyCON training, each
 once through its CLI. Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build K1 (ops/csrc/folded_conv3.cu) with nvcc;
+  2. build K1 (ops/csrc/folded_conv3.cu) and K1-dW (ops/csrc/folded_conv3_dw.cu),
+     one nvcc each, in parallel;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
-     patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with TF32
-     off, tolerance 1e-4 * max|plain|; its time beside the plain version's,
-     one cuDNN conv call's (library_ms) and the FLOP/byte bound;
-  4. the folded UNet3D (through K1) against the plain UNet3D on one patch
-     batch with the same weights, tolerance 1e-4 * max|plain|;
-  5. end to end: seeded weights in the JAX layout through the weight mapper
-     into a checkpoint, one synthetic (144, 144, 112) volume written with
-     numpy (80 patches at stride 16/4, all origins even so the folded path
-     runs), the port's test_pancreas CLI on it with the K1 launch count set
-     to 0 before and read after (it must be 8 per forward chunk), and its
-     label map against the plain engine's (>= 99.99 % of voxels agree);
-  6. a `{"kernels": [...]}` line, then `{"ok": true, "device": {...}}` last.
+     eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
+     TF32 off, tolerance 1e-4 * max|plain|; its time beside the plain
+     version's, one cuDNN conv call's (library_ms) and the FLOP/byte bound;
+  4. K1 forward the same way at the 8 shapes one training step gives it
+     (patch 112x112x96, B = TRAIN_BATCH);
+  5. K1-dW at the 8 shapes one training step gives it (patch 112x112x96,
+     B = TRAIN_BATCH): the kernel and the float32 plain version (eight slab
+     einsums) against a float64 plain version on the card; pass if the
+     kernel's max error is at most max(1e-4 * max|ref|, 4 x the float32
+     plain version's error), and a rerun is bit-identical; its time beside
+     the plain version's, one cuDNN weight-grad call's and the bound;
+  6. dx through K1 at the 7 training shapes whose input needs a gradient:
+     time beside one cuDNN data-grad call's and the bound (error against
+     the plain version printed);
+  7. one full-width folded UnetConv3 block (up_concat1, B = TRAIN_BATCH)
+     through FoldedConv3Fn against autograd of the plain folded path (with
+     K1's forward values, so both sides share their ReLU masks): the
+     gradients of x and of every conv weight within 1e-4 * max|plain|, of
+     each bias (in front of an InstanceNorm, so truly 0) within 1e-4 *
+     max|plain| of its conv's weight gradient;
+  8. the folded UNet3D (through K1) against the plain UNet3D on one eval
+     patch batch with the same weights, tolerance 1e-4 * max|plain|;
+  9. evaluation end to end: seeded weights in the JAX layout through the
+     weight mapper into a checkpoint, one synthetic (144, 144, 112) volume
+     written with numpy (80 patches at stride 16/4, all origins even so the
+     folded path runs), the port's test_pancreas CLI on it with the K1
+     launch count set to 0 before and read after (it must be 8 per forward
+     chunk), and its label map against the plain engine's (>= 99.99 % of
+     voxels agree);
+ 10. training end to end: a synthetic Pancreas tree of 16 training and 2
+     validation cases of (120, 120, 100) as .npz, the train CLI's Trainer
+     at the Pancreas defaults for 4 steps (val and save every 2), with the
+     K1, K1 dx and K1-dW counts set to 0 before each step and read after it
+     (16 + 7 = 23 K1 and 8 K1-dW per step), finite losses, step 4 and the
+     checkpoints; then `--max_iterations 6 --resume <the step-4
+     checkpoint>` (the run directory encodes max_iterations, so `auto`
+     would look in a new one), which must start from exactly the saved
+     state at step 4 and end at 6; ms per step, peak memory, validation
+     vols/s;
+ 11. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+     eval, K1 forward in training, K1 dx, K1-dW), each with that path's
+     launch count and the sums over its shapes; then
+     `{"ok": true, "device": {...}}` last.
 
 Any failed check raises and the process exits non-zero. It exits non-zero
 without a result when CUDA is unavailable, and when run outside the
@@ -31,30 +63,44 @@ temporary directory, apart from the kernel build directory of the package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 PATCH = (96, 96, 96)
 STRIDE_XY, STRIDE_Z = 16, 4
 PATCH_BATCH = 4
 VOLUME = (144, 144, 112)
+TRAIN_BATCH = 8
+TRAIN_VOLUME = (120, 120, 100)
+TRAIN_STEPS, RESUME_STEPS = 4, 6
 SEED = 0
 REPS = 5
 # published dense peaks: (float32 FLOP/s on the CUDA cores, HBM bytes/s)
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
          "H200": (67e12, 4.8e12), "H100": (67e12, 3.35e12)}
-# (layer, fold grid G of the input, L_in, L_out, to_phase) for one patch forward
+# (layer, fold grid G of the input, L_in, L_out, to_phase) for one eval patch forward
 K1_SHAPES = [
-    ("conv1.conv1", 48, 8, 128, 1), ("conv1.conv2", 49, 128, 128, 0),
-    ("conv2.conv1", 24, 128, 256, 1), ("conv2.conv2", 25, 256, 256, 0),
-    ("up_concat2.conv1", 24, 768, 256, 1), ("up_concat2.conv2", 25, 256, 256, 0),
-    ("up_concat1.conv1", 48, 384, 128, 1), ("up_concat1.conv2", 49, 128, 128, 0),
+    ("conv1.conv1", (48,) * 3, 8, 128, 1), ("conv1.conv2", (49,) * 3, 128, 128, 0),
+    ("conv2.conv1", (24,) * 3, 128, 256, 1), ("conv2.conv2", (25,) * 3, 256, 256, 0),
+    ("up_concat2.conv1", (24,) * 3, 768, 256, 1), ("up_concat2.conv2", (25,) * 3, 256, 256, 0),
+    ("up_concat1.conv1", (48,) * 3, 384, 128, 1), ("up_concat1.conv2", (49,) * 3, 128, 128, 0),
 ]
+# the same 8 convs at the training patch 112x112x96: fold grid (G1, G2, G3)
+TRAIN_SHAPES = [
+    ("conv1.conv1", (56, 56, 48), 8, 128, 1), ("conv1.conv2", (57, 57, 49), 128, 128, 0),
+    ("conv2.conv1", (28, 28, 24), 128, 256, 1), ("conv2.conv2", (29, 29, 25), 256, 256, 0),
+    ("up_concat2.conv1", (28, 28, 24), 768, 256, 1), ("up_concat2.conv2", (29, 29, 25), 256, 256, 0),
+    ("up_concat1.conv1", (56, 56, 48), 384, 128, 1), ("up_concat1.conv2", (57, 57, 49), 128, 128, 0),
+]
+K1_REPLACES = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:107 (folded_conv3_pallas)"
 
 
 def _phase(name, t0):
@@ -79,56 +125,36 @@ def _time_ms(torch, fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    import torch
+def _bound(flops, nbytes, peaks):
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    import numpy as np
+
+def _kernel_entry(name, path, source, replaces, launches, rows):
+    """One `{"kernels": [...]}` entry of one path: its launches in that
+    path's run and the sums over the shapes that path gives the kernel once
+    each (one eval patch-batch forward, or one train step)."""
+    ops = sum(r["ops_ms"] for r in rows)
+    err = max(r["max_abs_err"] for r in rows)
+    return dict(name=name, path=path, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, max_err=err,
+                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by="operations" if ops >= sum(r["bytes_ms"] for r in rows) else "bytes",
+                library_ms=sum(r["library_ms"] for r in rows), shapes=rows)
+
+
+def phase_k1(torch, device, gen, peaks, shapes, batch, tag):
+    """K1 against its plain version at one path's shapes and batch."""
     import torch.nn.functional as F
 
-    from dycon_paper_replication_tpu_torch import weights
-    from dycon_paper_replication_tpu_torch.cli import test_pancreas
-    from dycon_paper_replication_tpu_torch.config import make_config, resolve_device
-    from dycon_paper_replication_tpu_torch.data.synthetic import _ellipsoid_volume, write_case
-    from dycon_paper_replication_tpu_torch.eval import SlidingWindowInference, compute_origins
-    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
-    from dycon_paper_replication_tpu_torch.ops import _build
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
-        SOURCE, folded_conv3, folded_conv3_plain)
-    from dycon_paper_replication_tpu_torch.utils import checkpoint
+        folded_conv3, folded_conv3_plain)
 
-    t_all = time.perf_counter()
-    device = resolve_device("cuda")  # also turns TF32 off
-    kind = torch.cuda.get_device_name(0)
-
-    # 1. the card
-    t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-    peak_flops, peak_bw = next(v for k, v in PEAKS.items() if k in kind) \
-        if any(k in kind for k in PEAKS) else PEAKS["H100"]
-    print(f"bound peaks: {peak_flops / 1e12} TFLOP/s float32, {peak_bw / 1e12} TB/s")
-    _phase("card", t0)
-
-    # 2. build
-    t0 = time.perf_counter()
-    log = _build.build(SOURCE)[SOURCE]
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("ptxas:", line.strip())
-    print(f"build_s {time.perf_counter() - t0:.3f}")
-    _phase("build", t0)
-
-    # 3. K1 against its plain version at the full-width shapes
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(SEED)
     rows = []
-    for layer, g, lin, lout, to_phase in K1_SHAPES:
-        x = torch.randn(PATCH_BATCH, g, g, g, lin, device=device, generator=gen)
+    for layer, g, lin, lout, to_phase in shapes:
+        x = torch.randn(batch, *g, lin, device=device, generator=gen)
         wf = torch.randn(2, 2, 2, lin, lout, device=device, generator=gen) / math.sqrt(8 * lin)
         y = folded_conv3.launch(x, wf, to_phase=to_phase)
         want = folded_conv3_plain(x, wf, to_phase=to_phase)
@@ -142,28 +168,155 @@ def main() -> int:
         ms = _time_ms(torch, lambda: folded_conv3.launch(x, wf, to_phase=to_phase))
         plain_ms = _time_ms(torch, lambda: folded_conv3_plain(x, wf, to_phase=to_phase))
         library_ms = _time_ms(torch, lambda: F.conv3d(xn, wn, padding=pad))
-        q = g + (1 if to_phase == 1 else -1)
-        flops = 2 * PATCH_BATCH * q ** 3 * lin * lout * 8
-        nbytes = 4 * (x.numel() + wf.numel() + y.numel())
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        flops = 2 * batch * math.prod(y.shape[1:4]) * lin * lout * 8
         row = dict(layer=layer, x=list(x.shape), wf=list(wf.shape), to_phase=to_phase,
                    max_abs_err=err, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   ops_ms=t_ops, bytes_ms=t_bytes, tflops=flops / ms / 1e9)
+                   library_ms=library_ms, tflops=flops / ms / 1e9,
+                   **_bound(flops, 4 * (x.numel() + wf.numel() + y.numel()), peaks))
         rows.append(row)
-        print("k1", json.dumps(row), flush=True)
+        print(tag, json.dumps(row), flush=True)
         del x, wf, y, want, xn, wn
-    _phase("kernels", t0)
+    return rows
 
-    # 4. full-width model: folded (through K1) against plain
-    t0 = time.perf_counter()
-    params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
-    sd = weights.jax_tree_to_state_dict(params, state)
-    nets = {}
-    for layout in ("folded", "NDHWC"):
-        nets[layout] = UNet3D(UNet3DConfig(layout=layout)).to(device).eval()
-        nets[layout].load_state_dict(sd)
+
+def _conv_backward(torch, dy, x, wf, to_phase, mask):
+    """One cuDNN convolution_backward call on the NCDHW-permuted tensors."""
+    pad = [1, 1, 1] if to_phase == 1 else [0, 0, 0]
+    return torch.ops.aten.convolution_backward(
+        dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2), None,
+        [1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+
+def phase_dw(torch, device, gen, peaks):
+    """K1-dW against float32 and float64 plain versions at the training shapes."""
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3_dw, folded_conv3_dw_plain)
+
+    rows = []
+    for layer, g, lin, lout, to_phase in TRAIN_SHAPES:
+        q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
+        x = torch.randn(TRAIN_BATCH, *g, lin, device=device, generator=gen)
+        dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
+        dwf = folded_conv3_dw.launch(x, dy, to_phase=to_phase)
+        again = folded_conv3_dw.launch(x, dy, to_phase=to_phase)
+        plain = folded_conv3_dw_plain(x, dy, to_phase=to_phase)
+        ref = folded_conv3_dw_plain(x.double(), dy.double(), to_phase=to_phase)
+        torch.cuda.synchronize()
+        err = (dwf.double() - ref).abs().max().item()
+        err_plain = (plain.double() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tol = max(1e-4 * scale, 4 * err_plain)
+        del ref
+        _check(bool(torch.isfinite(dwf).all()) and err <= tol,
+               f"K1-dW {layer}: max abs err {err} > {tol} (plain float32 err {err_plain})")
+        _check(torch.equal(dwf, again), f"K1-dW {layer}: a rerun is not bit-identical")
+        wf = torch.empty(2, 2, 2, lin, lout, device=device)
+        lib = _conv_backward(torch, dy, x, wf, to_phase, [False, True, False])[1]
+        lib_err = (lib.permute(2, 3, 4, 1, 0) - plain).abs().max().item()
+        ms = _time_ms(torch, lambda: folded_conv3_dw.launch(x, dy, to_phase=to_phase))
+        plain_ms = _time_ms(torch, lambda: folded_conv3_dw_plain(x, dy, to_phase=to_phase))
+        library_ms = _time_ms(
+            torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [False, True, False]))
+        flops = 2 * TRAIN_BATCH * math.prod(q) * lin * lout * 8
+        row = dict(layer=layer, x=list(x.shape), dy=list(dy.shape), to_phase=to_phase,
+                   max_abs_err=err, plain_f32_err=err_plain, tol=tol, max_abs_ref=scale,
+                   library_vs_plain=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   tflops=flops / ms / 1e9,
+                   **_bound(flops, 4 * (x.numel() + dy.numel() + dwf.numel()), peaks))
+        rows.append(row)
+        print("k1_dw", json.dumps(row), flush=True)
+        del x, dy, dwf, again, plain, lib
+    return rows
+
+
+def phase_dx(torch, device, gen, peaks):
+    """dx through K1 (taps flipped and transposed, opposite phase) at the
+    training shapes whose input needs a gradient."""
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3_dx, folded_conv3_plain)
+
+    rows = []
+    for layer, g, lin, lout, to_phase in TRAIN_SHAPES[1:]:
+        q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
+        x = torch.empty(TRAIN_BATCH, *g, lin, device=device)
+        dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
+        wf = torch.randn(2, 2, 2, lin, lout, device=device, generator=gen) / math.sqrt(8 * lout)
+        wf_t = wf.flip(0, 1, 2).transpose(3, 4).contiguous()
+        dx = folded_conv3_dx.launch(dy, wf_t, to_phase=1 - to_phase)
+        want = folded_conv3_plain(dy, wf_t, to_phase=1 - to_phase)
+        lib = _conv_backward(torch, dy, x, wf, to_phase, [True, False, False])[0]
+        torch.cuda.synchronize()
+        err = (dx - want).abs().max().item()
+        scale = want.abs().max().item()
+        lib_err = (lib.permute(0, 2, 3, 4, 1) - want).abs().max().item()
+        _check(bool(torch.isfinite(dx).all()) and err <= 1e-4 * scale,
+               f"dx {layer}: max abs err {err} > 1e-4 * {scale}")
+        _check(lib_err <= 1e-4 * scale, f"dx {layer}: library differs by {lib_err}")
+        ms = _time_ms(torch, lambda: folded_conv3_dx.launch(dy, wf_t, to_phase=1 - to_phase))
+        plain_ms = _time_ms(torch, lambda: folded_conv3_plain(dy, wf_t, to_phase=1 - to_phase))
+        library_ms = _time_ms(
+            torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [True, False, False]))
+        flops = 2 * TRAIN_BATCH * math.prod(g) * lin * lout * 8
+        row = dict(layer=layer, dy=list(dy.shape), dx=list(dx.shape), to_phase=1 - to_phase,
+                   max_abs_err=err, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, tflops=flops / ms / 1e9,
+                   **_bound(flops, 4 * (dy.numel() + wf.numel() + dx.numel()), peaks))
+        rows.append(row)
+        print("k1_dx", json.dumps(row), flush=True)
+        del x, dy, wf, wf_t, dx, want, lib
+    return rows
+
+
+def phase_grad(torch, device, gen):
+    """A full-width folded up_concat1 block: FoldedConv3Fn (K1, K1 dx, K1-dW)
+    against autograd of the plain folded path (module doc: tolerances)."""
+    from dycon_paper_replication_tpu_torch.models.unet3d import UnetConv3
+    from dycon_paper_replication_tpu_torch.models.unet3d_folded import _folded_block
+    from dycon_paper_replication_tpu_torch.ops import folding
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        K1ValuedPlainConvFn, folded_conv3, folded_conv3_dw, folded_conv3_dx)
+
+    block = UnetConv3(48, 16).to(device)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, device=device, generator=gen) * 0.1)
+    grid = TRAIN_SHAPES[6][1]
+    n_valid = 8 * math.prod(grid)
+    x = torch.randn(TRAIN_BATCH, *grid, 384, device=device, generator=gen)
+    cot = torch.randn(TRAIN_BATCH, *grid, 128, device=device, generator=gen)
+    grads = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()),
+                      ("plain", mock.patch.object(folding, "FoldedConv3Fn", K1ValuedPlainConvFn))):
+        block.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_()
+        counts = (folded_conv3.launches, folded_conv3_dx.launches, folded_conv3_dw.launches)
+        with ctx:
+            y = _folded_block(block, xr, grid=grid, n_valid=n_valid)
+            (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads[name] = {"x": xr.grad, **{k: p.grad for k, p in block.named_parameters()}}
+        ran = [c.launches - c0 for c, c0 in
+               zip((folded_conv3, folded_conv3_dx, folded_conv3_dw), counts)]
+        print(f"grad {name}: launches K1 {ran[0]}, K1 dx {ran[1]}, K1-dW {ran[2]}")
+        _check(ran == ([2, 2, 2] if name == "kernels" else [0, 0, 0]),
+               f"{name}: launches {ran}")
+    for k, want in grads["plain"].items():
+        got = grads["kernels"][k]
+        _check(got is not None, f"grad {k}: no gradient through FoldedConv3Fn")
+        diff = (got - want).abs().max().item()
+        # A conv bias in front of an InstanceNorm has a true gradient of 0:
+        # on each side it is the rounding residue of a sum of ~10^7 terms
+        # that cancel. Its scale is that of such a sum, its weight gradient's.
+        ref = grads["plain"][k[:-1] + "w"] if k.endswith(".b") else want
+        scale = ref.abs().max().item()
+        print(f"grad {k}: max abs diff {diff} (max |plain| {want.abs().max().item()}, "
+              f"scale {scale})")
+        _check(bool(torch.isfinite(got).all()) and diff <= 1e-4 * scale,
+               f"grad {k}: FoldedConv3Fn differs from plain autograd by {diff}")
+
+
+def phase_model(torch, device, gen, nets):
+    """Full-width model: folded (through K1) against plain, eval mode."""
     x = torch.rand(PATCH_BATCH, *PATCH, 1, device=device, generator=gen)
     with torch.inference_mode():
         _, seg_f, feat_f = nets["folded"](x)
@@ -176,73 +329,247 @@ def main() -> int:
         _check(bool(torch.isfinite(a).all()) and diff <= 1e-4 * scale,
                f"folded model {name} differs from plain by {diff}")
     _check(tuple(seg_f.shape) == (PATCH_BATCH, *PATCH, 2), f"seg shape {tuple(seg_f.shape)}")
-    del x, seg_f, seg_p, feat_f, feat_p
+
+
+def phase_eval(torch, nets, tmp):
+    """Evaluation end to end through the test CLI. Returns
+    the K1 launch count of the CLI run."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.cli import test_pancreas
+    from dycon_paper_replication_tpu_torch.config import make_config
+    from dycon_paper_replication_tpu_torch.data.synthetic import _ellipsoid_volume, write_case
+    from dycon_paper_replication_tpu_torch.eval import SlidingWindowInference, compute_origins
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    root = os.path.join(tmp, "Pancreas")
+    os.makedirs(os.path.join(root, "Pancreas_data"))
+    image, label = _ellipsoid_volume(np.random.default_rng(SEED), VOLUME)
+    write_case(os.path.join(root, "Pancreas_data", "PANCREAS_t0000.npz"), image, label)
+    with open(os.path.join(root, "test1.list"), "w") as f:
+        f.write("PANCREAS_t0000.npz\n")
+    runs = os.path.join(tmp, "runs")
+    snapshot = make_config("pancreas", snapshot_root=runs).snapshot_path()
+    checkpoint.save_checkpoint(checkpoint.best_checkpoint_path(snapshot, "unet_3D"),
+                               nets["folded"])
+    origins = compute_origins(VOLUME, PATCH, STRIDE_XY, STRIDE_Z)
+    n_chunks = math.ceil(len(origins) / PATCH_BATCH)
+    _check(len(origins) == 80 and not (origins % 2).any(), f"{len(origins)} origins")
+
+    argv = ["--root_path", root, "--snapshot_root", runs, "--device", "cuda",
+            "--patch_batch", str(PATCH_BATCH)]
+    folded_conv3.launches = 0
+    t_cli = time.perf_counter()
+    avg = test_pancreas.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t_cli
+    launches = folded_conv3.launches
+    print(f"e2e: {len(origins)} patches, {n_chunks} chunks, K1 launches {launches}, "
+          f"cli wall {cli_s:.3f} s, {1.0 / cli_s:.4f} vols/s")
+    _check(launches == 8 * n_chunks, f"K1 launches {launches} != 8 * {n_chunks}")
+    _check(len(avg) == 4 and all(math.isfinite(v) for v in avg), f"metrics {avg}")
+
+    # the folded engine's label map against the plain engine's
+    sw_f = SlidingWindowInference(nets["folded"], PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
+    sw_p = SlidingWindowInference(nets["NDHWC"], PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
+    t_sw = time.perf_counter()
+    label_f, score_f = sw_f(image)
+    torch.cuda.synchronize()
+    sw_s = time.perf_counter() - t_sw
+    t_sw = time.perf_counter()
+    label_p, score_p = sw_p(image)
+    torch.cuda.synchronize()
+    sw_plain_s = time.perf_counter() - t_sw
+    agree = float((label_f == label_p).mean())
+    print(f"sliding window: folded {sw_s:.3f} s ({1.0 / sw_s:.4f} vols/s), plain "
+          f"{sw_plain_s:.3f} s; label agreement {agree:.7f}; max |score diff| "
+          f"{float(np.abs(score_f - score_p).max())}; foreground {int(label_f.sum())} voxels")
+    _check(label_f.shape == VOLUME and np.isfinite(score_f).all(), "folded engine output")
+    _check(agree >= 0.9999, f"label agreement {agree} < 0.9999")
+    return launches
+
+
+def phase_train(torch, tmp):
+    """Training end to end through the train CLI's Trainer at the Pancreas
+    defaults: 4 steps, then a resume from step 4 to 6. Every step runs with
+    the K1, K1 dx and K1-dW counts set to 0 before it and read after it."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    root = os.path.join(tmp, "PancreasTrain")
+    make_pancreas(root, n_train=16, n_test=2, shape=TRAIN_VOLUME, seed=SEED, suffix=".npz")
+    argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, "train_runs"),
+            "--device", "cuda", "--val_every", "2", "--save_every", "2"]
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    steps, val_s = [], []
+
+    def trainer_for(extra):
+        trainer = Trainer(config_from_args("pancreas", argv + extra))
+        step, validate = trainer.train_step, trainer.validate
+
+        def counted_step(*args, **kwargs):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kwargs)
+            vals = out.tolist()
+            ms = (time.perf_counter() - t0) * 1e3
+            row = dict(zip(("k1", "k1_dx", "k1_dw"), (c.launches for c in counters)), ms=ms,
+                       **dict(zip(SCALAR_METRICS, vals)))
+            steps.append(row)
+            print("train step", json.dumps(row), flush=True)
+            return out
+
+        def timed_validate():
+            t0 = time.perf_counter()
+            dice = validate()
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+            print(f"validation: dice {dice}, {val_s[-1]:.3f} s", flush=True)
+            return dice
+
+        trainer.train_step, trainer.validate = counted_step, timed_validate
+        return trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer_for(["--max_iterations", str(TRAIN_STEPS)])
+    first.run()
+    _check(first.state.step == TRAIN_STEPS, f"step {first.state.step} after the first run")
+    saved = checkpoint.iter_checkpoint_path(first.snapshot_path, TRAIN_STEPS)
+    for n in range(2, TRAIN_STEPS + 1, 2):
+        path = checkpoint.iter_checkpoint_path(first.snapshot_path, n)
+        _check(os.path.isfile(path), f"no checkpoint {path}")
+    print("checkpoints:", sorted(os.listdir(first.snapshot_path)))
+    want = {**{f"student.{k}": v.cpu() for k, v in first.state.student.state_dict().items()},
+            **{f"teacher.{k}": v.cpu() for k, v in first.state.teacher.state_dict().items()},
+            **{f"momentum.{k}": v.cpu() for k, v in first.state.momentum.items()}}
+    del first
+
+    second = trainer_for(["--max_iterations", str(RESUME_STEPS), "--resume", saved])
+    got = {**{f"student.{k}": v for k, v in second.state.student.state_dict().items()},
+           **{f"teacher.{k}": v for k, v in second.state.teacher.state_dict().items()},
+           **{f"momentum.{k}": v for k, v in second.state.momentum.items()}}
+    _check(second.state.step == TRAIN_STEPS, f"resumed at step {second.state.step}")
+    _check(got.keys() == want.keys() and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+           "the resumed state differs from the saved one")
+    second.run()
+    _check(second.state.step == RESUME_STEPS, f"step {second.state.step} after the resume")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    del second
+
+    _check(len(steps) == RESUME_STEPS, f"{len(steps)} steps ran")
+    for i, row in enumerate(steps):
+        _check((row["k1"], row["k1_dx"], row["k1_dw"]) == (16, 7, 8),
+               f"step {i + 1}: launches K1 {row['k1']} + dx {row['k1_dx']} (want 16 + 7 = 23), "
+               f"K1-dW {row['k1_dw']} (want 8)")
+        _check(all(math.isfinite(row[k]) for k in SCALAR_METRICS) and not row["skipped"],
+               f"step {i + 1}: {row}")
+    ms_step = statistics.median(r["ms"] for r in steps[1:TRAIN_STEPS])
+    n_val = 2
+    print(f"train: {len(steps)} steps, {ms_step:.3f} ms per step (median of steps 2-"
+          f"{TRAIN_STEPS}; all: {[round(r['ms'], 3) for r in steps]}), peak memory "
+          f"{peak_gb:.3f} GiB, validation {[round(s, 3) for s in val_s]} s for {n_val} "
+          f"volumes = {n_val / float(np.median(val_s)):.4f} vols/s (median)")
+    return dict(k1_launches=sum(r["k1"] for r in steps),
+                k1_dx_launches=sum(r["k1_dx"] for r in steps),
+                k1_dw_launches=sum(r["k1_dw"] for r in steps),
+                ms_per_step=ms_step, peak_gib=peak_gb)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+
+    from dycon_paper_replication_tpu_torch import weights
+    from dycon_paper_replication_tpu_torch.config import resolve_device
+    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+    from dycon_paper_replication_tpu_torch.ops import _build
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import DW_SOURCE, SOURCE
+
+    t_all = time.perf_counter()
+    device = resolve_device("cuda")  # also turns TF32 off
+    kind = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    peaks = next(v for k, v in PEAKS.items() if k in kind) \
+        if any(k in kind for k in PEAKS) else PEAKS["H100"]
+    print(f"bound peaks: {peaks[0] / 1e12} TFLOP/s float32, {peaks[1] / 1e12} TB/s")
+    _phase("card", t0)
+
+    t0 = time.perf_counter()
+    logs = _build.build(SOURCE, DW_SOURCE)
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas {src.name}:", line.strip())
+    print(f"build_s {time.perf_counter() - t0:.3f}")
+    _phase("build", t0)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    k1_rows = phase_k1(torch, device, gen, peaks, K1_SHAPES, PATCH_BATCH, "k1")
+    _phase("kernels", t0)
+    t0 = time.perf_counter()
+    k1_train_rows = phase_k1(torch, device, gen, peaks, TRAIN_SHAPES, TRAIN_BATCH, "k1_train")
+    _phase("k1_train", t0)
+    t0 = time.perf_counter()
+    dw_rows = phase_dw(torch, device, gen, peaks)
+    _phase("k1_dw", t0)
+    t0 = time.perf_counter()
+    dx_rows = phase_dx(torch, device, gen, peaks)
+    _phase("k1_dx", t0)
+    t0 = time.perf_counter()
+    phase_grad(torch, device, gen)
+    _phase("grad", t0)
+
+    t0 = time.perf_counter()
+    params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
+    sd = weights.jax_tree_to_state_dict(params, state)
+    nets = {}
+    for layout in ("folded", "NDHWC"):
+        nets[layout] = UNet3D(UNet3DConfig(layout=layout)).to(device).eval()
+        nets[layout].load_state_dict(sd)
+    phase_model(torch, device, gen, nets)
     _phase("model", t0)
 
-    # 5. end to end through the CLI
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "Pancreas")
-        os.makedirs(os.path.join(root, "Pancreas_data"))
-        image, label = _ellipsoid_volume(np.random.default_rng(SEED), VOLUME)
-        write_case(os.path.join(root, "Pancreas_data", "PANCREAS_t0000.npz"), image, label)
-        with open(os.path.join(root, "test1.list"), "w") as f:
-            f.write("PANCREAS_t0000.npz\n")
-        runs = os.path.join(tmp, "runs")
-        snapshot = make_config("pancreas", snapshot_root=runs).snapshot_path()
-        checkpoint.save_checkpoint(checkpoint.best_checkpoint_path(snapshot, "unet_3D"),
-                                   nets["folded"])
-        origins = compute_origins(VOLUME, PATCH, STRIDE_XY, STRIDE_Z)
-        n_chunks = math.ceil(len(origins) / PATCH_BATCH)
-        _check(len(origins) == 80 and not (origins % 2).any(), f"{len(origins)} origins")
+        t0 = time.perf_counter()
+        eval_launches = phase_eval(torch, nets, tmp)
+        del nets
+        _phase("e2e", t0)
+        t0 = time.perf_counter()
+        train = phase_train(torch, tmp)
+        _phase("train", t0)
 
-        argv = ["--root_path", root, "--snapshot_root", runs, "--device", "cuda",
-                "--patch_batch", str(PATCH_BATCH)]
-        folded_conv3.launches = 0
-        t_cli = time.perf_counter()
-        avg = test_pancreas.main(argv)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t_cli
-        launches = folded_conv3.launches
-        print(f"e2e: {len(origins)} patches, {n_chunks} chunks, K1 launches {launches}, "
-              f"cli wall {cli_s:.3f} s, {1.0 / cli_s:.4f} vols/s")
-        _check(launches == 8 * n_chunks, f"K1 launches {launches} != 8 * {n_chunks}")
-        _check(len(avg) == 4 and all(math.isfinite(v) for v in avg), f"metrics {avg}")
-
-        # the folded engine's label map against the plain engine's
-        sw_f = SlidingWindowInference(nets["folded"], PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
-        sw_p = SlidingWindowInference(nets["NDHWC"], PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
-        t_sw = time.perf_counter()
-        label_f, score_f = sw_f(image)
-        torch.cuda.synchronize()
-        sw_s = time.perf_counter() - t_sw
-        t_sw = time.perf_counter()
-        label_p, score_p = sw_p(image)
-        torch.cuda.synchronize()
-        sw_plain_s = time.perf_counter() - t_sw
-        agree = float((label_f == label_p).mean())
-        print(f"sliding window: folded {sw_s:.3f} s ({1.0 / sw_s:.4f} vols/s), plain "
-              f"{sw_plain_s:.3f} s; label agreement {agree:.7f}; max |score diff| "
-              f"{float(np.abs(score_f - score_p).max())}; foreground {int(label_f.sum())} voxels")
-        _check(label_f.shape == VOLUME and np.isfinite(score_f).all(), "folded engine output")
-        _check(agree >= 0.9999, f"label agreement {agree} < 0.9999")
-    _phase("e2e", t0)
-
-    kernels = [dict(
-        name="folded_conv3", route="cuda",
-        source="dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu",
-        replaces="dycon_paper_replication_tpu/ops/folded_conv_pallas.py:107 (folded_conv3_pallas)",
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        max_err=max(r["max_abs_err"] for r in rows),
-        # one patch-batch forward: the 8 shapes once each
-        ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-        bound_ms=sum(r["bound_ms"] for r in rows),
-        bound_by=("operations" if sum(r["ops_ms"] for r in rows) >= sum(r["bytes_ms"] for r in rows)
-                  else "bytes"),
-        library_ms=sum(r["library_ms"] for r in rows),
-        shapes=rows,
-    )]
+    k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
+    kernels = [
+        _kernel_entry("folded_conv3", "eval", k1_src, K1_REPLACES, eval_launches, k1_rows),
+        _kernel_entry("folded_conv3_train", "train", k1_src, K1_REPLACES,
+                      train["k1_launches"], k1_train_rows),
+        _kernel_entry("folded_conv3_dx", "train", k1_src,
+                      "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)",
+                      train["k1_dx_launches"], dx_rows),
+        _kernel_entry("folded_conv3_dw", "train",
+                      "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3_dw.cu",
+                      "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:179 (_dwf)",
+                      train["k1_dw_launches"], dw_rows),
+    ]
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

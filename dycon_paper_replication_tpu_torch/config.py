@@ -7,16 +7,26 @@ names and defaults so checkpoints are addressed by the same run directory.
 Fields dropped from the JAX config, by decision:
   * `remat` (gradient rematerialisation) and `wire_dtype` (the host->TPU
     transfer dtype) exist for the TPU's 16 GB HBM and its slow host link;
-    the port has neither concern yet, and training is a later slice.
+    the H100's 80 GB hold a Pancreas step without recomputation.
+Field added: `device` ("cuda" or "cpu"), the torch device of a run.
 `layout="auto"` resolves against the torch device: "folded" for unet_3D on
 CUDA, where the fold-2 conv is the hand-written kernel K1, and "NDHWC"
-elsewhere. The compute dtype on the card is float32 in this slice.
+elsewhere. The compute dtype on the card is float32.
+
+`build_parser` / `config_from_args` take the JAX package's flag names for
+what the port's trainer implements, plus `--device`; the flags of features
+not ported (VNet, ASPP, bf16, multi-device and DDP, chunked FeCL, the TPU
+host-loop options --fetch_ahead, --step_diagnostics, --host_rss_exit_gb,
+--remat, --wire_dtype) and the GPU-selection flags --gpu_id/--gpu_ids (the
+device is --device) are refused by argparse rather than accepted and
+ignored.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
@@ -93,6 +103,7 @@ class TrainConfig:
     fetch_ahead: int = 1
     step_diagnostics: str = "cadence"
     layout: str = "auto"  # auto | NDHWC | folded
+    device: str = "cuda"  # cuda | cpu
 
     def resolved_layout(self, device: torch.device | str) -> str:
         """The model layout for `device`: "auto" is "folded" for unet_3D on
@@ -150,6 +161,61 @@ def make_config(dataset: str, **overrides: Any) -> TrainConfig:
     kw = dict(DATASET_DEFAULTS[dataset])
     kw.update(overrides)
     return TrainConfig(**kw)
+
+
+def build_parser(dataset: str) -> argparse.ArgumentParser:
+    """The JAX package's training flags (names and defaults) that the port
+    implements, plus --device."""
+    d = make_config(dataset)
+    p = argparse.ArgumentParser(description=f"Training DyCON on {d.exp} (PyTorch/CUDA)")
+    p.add_argument("--root_dir", type=str, default=d.root_dir)
+    p.add_argument("--exp", type=str, default=d.exp)
+    p.add_argument("--model", type=str, choices=["unet_3D"], default=d.model)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[1])
+    p.add_argument("--in_ch", type=int, default=d.in_ch)
+    p.add_argument("--num_classes", type=int, default=d.num_classes)
+    p.add_argument("--feature_scaler", type=int, default=d.feature_scaler)
+    p.add_argument("--patch_size", type=int, nargs=3, default=list(d.patch_size))
+    p.add_argument("--max_iterations", type=int, default=d.max_iterations)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--labeled_bs", type=int, default=d.labeled_bs)
+    p.add_argument("--base_lr", type=float, default=d.base_lr)
+    p.add_argument("--labelnum", type=int, default=d.labelnum)
+    p.add_argument("--ema_decay", type=float, default=d.ema_decay)
+    p.add_argument("--consistency", type=float, default=d.consistency)
+    p.add_argument("--consistency_type", type=str, default=d.consistency_type,
+                   choices=["mse", "kl"])
+    p.add_argument("--consistency_rampup", type=float, default=d.consistency_rampup)
+    p.add_argument("--gamma", type=float, default=d.gamma)
+    p.add_argument("--beta_min", type=float, default=d.beta_min)
+    p.add_argument("--beta_max", type=float, default=d.beta_max)
+    p.add_argument("--s_beta", type=float, default=None)
+    p.add_argument("--temp", type=float, default=d.temp)
+    p.add_argument("--l_weight", type=float, default=d.l_weight)
+    p.add_argument("--u_weight", type=float, default=d.u_weight)
+    p.add_argument("--use_focal", type=int, default=d.use_focal)
+    p.add_argument("--use_teacher_loss", type=int, default=d.use_teacher_loss)
+    p.add_argument("--snapshot_root", type=str, default=d.snapshot_root)
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype, choices=["float32"])
+    p.add_argument("--val_every", type=int, default=d.val_every)
+    p.add_argument("--save_every", type=int, default=d.save_every)
+    p.add_argument("--time_budget_s", type=float, default=d.time_budget_s,
+                   help="wall-clock budget; 0 = unlimited (clean exit + resumable ckpt)")
+    p.add_argument("--resume", type=str, default=d.resume,
+                   help='"" fresh, "auto" = latest ckpt of this run dir, or a path')
+    p.add_argument("--layout", type=str, default=d.layout, choices=["auto", "NDHWC", "folded"])
+    p.add_argument("--fecl_chunk", type=int, default=d.fecl_chunk, choices=[0])
+    p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    return p
+
+
+def config_from_args(dataset: str, argv: Sequence[str] | None = None) -> TrainConfig:
+    args = build_parser(dataset).parse_args(argv)
+    field_names = {f.name for f in dataclasses.fields(TrainConfig)}
+    kw = {k: v for k, v in vars(args).items() if k in field_names}
+    kw["patch_size"] = tuple(kw["patch_size"])
+    return make_config(dataset, **kw)
 
 
 def resolve_device(device: torch.device | str = "cuda") -> torch.device:

@@ -4,8 +4,9 @@ Counterpart of `_ellipsoid_volume` and `make_pancreas` in
 dycon_paper_replication_tpu/data/synthetic.py: a tree
 {root}/{train,test,test1}.list + Pancreas_data/<case>, each case an
 `image` float32 volume with a random ellipsoid "lesion" in `label`. Cases
-are .h5 files, as the dataset ships; `write_case` also writes a case as a
-numpy .npz archive of the same arrays, which needs no h5py.
+are .h5 files, as the dataset ships, or numpy .npz archives of the same
+arrays, which need no h5py (`make_pancreas(..., suffix=".npz")`,
+`write_case`).
 """
 
 from __future__ import annotations
@@ -43,12 +44,14 @@ def write_case(path: str, image: np.ndarray, label: np.ndarray) -> None:
 
 
 def make_pancreas(root: str, n_train: int = 8, n_test: int = 3, shape=(72, 72, 56),
-                  seed: int = 1):
-    """Pancreas-like tree: {root}/{train,test,test1}.list + Pancreas_data/."""
+                  seed: int = 1, suffix: str = ".h5"):
+    """Pancreas-like tree: {root}/{train,test,test1}.list + Pancreas_data/,
+    cases written as `suffix` (".h5", or ".npz", which needs no h5py), the
+    same volumes either way."""
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "Pancreas_data"), exist_ok=True)
-    train = [f"PANCREAS_{i:04d}.h5" for i in range(n_train)]
-    test = [f"PANCREAS_t{i:04d}.h5" for i in range(n_test)]
+    train = [f"PANCREAS_{i:04d}{suffix}" for i in range(n_train)]
+    test = [f"PANCREAS_t{i:04d}{suffix}" for i in range(n_test)]
     for fname, items in (("train.list", train), ("test.list", test), ("test1.list", test)):
         with open(os.path.join(root, fname), "w") as f:
             f.write("\n".join(items) + "\n")

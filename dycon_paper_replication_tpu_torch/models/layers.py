@@ -26,7 +26,10 @@ class Conv3d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm parameters (`scale`, `bias`) and running stats (`mean`, `var`)."""
+    """BatchNorm parameters (`scale`, `bias`) and running stats (`mean`, `var`).
+
+    In training mode it normalises with the batch statistics and updates the
+    running stats in place (the JAX layer returns them as a new state)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -36,7 +39,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x, self.scale, self.bias, self.mean, self.var)
+        if not self.training:
+            return batch_norm(x, self.scale, self.bias, self.mean, self.var)
+        y, mean, var = batch_norm_train(x, self.scale, self.bias, self.mean, self.var)
+        with torch.no_grad():
+            self.mean.copy_(mean)
+            self.var.copy_(var)
+        return y
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -59,11 +68,29 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode channel BatchNorm over the last axis, from running stats.
-    Train mode (batch statistics and the running update) comes with the
-    training slice."""
+    """Eval-mode channel BatchNorm over the last axis, from running stats."""
     y = (x.to(torch.float32) - mean) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     mean: torch.Tensor, var: torch.Tensor, momentum: float = 0.1,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode channel BatchNorm over the last axis: normalise with the
+    batch mean and the biased batch variance (two-pass); the running stats
+    move by `momentum` towards the batch mean and the UNBIASED variance
+    (n / (n - 1)), the torch convention. Returns (y, new_mean, new_var),
+    the new stats detached."""
+    xf = x.to(torch.float32)
+    dims = tuple(range(x.dim() - 1))
+    b_mean = xf.mean(dim=dims)
+    b_var = (xf - b_mean).square().mean(dim=dims)
+    n = x.numel() // x.shape[-1]
+    unbiased = b_var.detach() * (n / max(n - 1, 1))
+    new_mean = (1 - momentum) * mean + momentum * b_mean.detach()
+    new_var = (1 - momentum) * var + momentum * unbiased
+    y = (xf - b_mean) * torch.rsqrt(b_var + eps)
+    return (y * scale + bias).to(x.dtype), new_mean, new_var
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,

@@ -125,11 +125,9 @@ class UNet3D(nn.Module):
 
 
 def projection_head(net: UNet3D, center: torch.Tensor) -> torch.Tensor:
-    """Corner-aligned upsample + conv-BN-ReLU-conv-BN of the bottleneck.
-    BatchNorm runs from running stats (the eval forward); its train mode
-    comes with the training slice."""
-    if net.training:
-        raise NotImplementedError("train-mode BatchNorm of the projection head is not ported yet")
+    """Corner-aligned upsample + conv-BN-ReLU-conv-BN of the bottleneck. In
+    training mode the BatchNorms use the batch statistics and update their
+    running stats (the JAX head's new BN state)."""
     p = net.projection
     target = tuple(s * net.cfg.scale_factor for s in center.shape[1:4])
     proj = trilinear_resize(center, target, align_corners=True)

@@ -71,3 +71,12 @@ def load(src: Path) -> ctypes.CDLL:
     """The library built from `src`, built first if needed."""
     build(src)
     return ctypes.CDLL(str(library_path(src)))
+
+
+def function(src: Path, name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C function `name` of the library built from `src`, returning a
+    CUDA error code (int)."""
+    fn = getattr(load(src), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

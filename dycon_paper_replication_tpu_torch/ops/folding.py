@@ -20,16 +20,20 @@ per axis; they are kept out of the InstanceNorm statistics (division by the
 true voxel count) and zeroed before the next conv, so folded == unfolded up
 to float32 reassociation.
 
-`folded_conv3` dispatches on the device alone: a CUDA tensor goes to the
-hand-written kernel K1 (ops/folded_conv_cuda.py), a CPU tensor to its plain
-F.conv3d version.
+`folded_conv3` goes through the autograd Function `FoldedConv3Fn`
+(ops/folded_conv_cuda.py) on every device, which dispatches on the device
+alone: a CUDA tensor goes to the hand-written kernels (K1 forward; K1 and
+K1-dW backward), a CPU tensor to their plain versions. The gradient to the
+unfolded kernel and the bias flows through `fold_conv3_weights` and
+`fold_bias` by autograd, as the JAX package's `folded_conv3_via_pallas`
+does by JAX autodiff.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .folded_conv_cuda import folded_conv3 as _k1
+from .folded_conv_cuda import FoldedConv3Fn
 
 _SUBS = 8  # 2*2*2 sub-positions per folded block
 
@@ -89,7 +93,7 @@ def folded_conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
     w: the UNFOLDED (3, 3, 3, Ci, Co) kernel; b: (Co,) or None.
     Returns phase-1 at grid G+1 (to_phase=1) or phase-0 at grid G-1."""
     wf = fold_conv3_weights(w).contiguous()
-    y = _k1(x.contiguous(), wf, to_phase=to_phase)
+    y = FoldedConv3Fn.apply(x.contiguous(), wf, to_phase)
     if b is not None:
         y = y + fold_bias(b)
     return y

@@ -1,0 +1,55 @@
+"""Segmentation and consistency losses over channels-last tensors: logits
+(B, D1, D2, D3, C), integer label maps (B, D1, D2, D3).
+
+Counterpart of dycon_paper_replication_tpu/ops/losses.py (the losses the
+train step uses).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over all voxels; labels are class indices."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[..., None].long()).mean()
+
+
+def dice_loss(score: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5) -> torch.Tensor:
+    """Soft binary Dice loss over the whole batch: `score` a foreground
+    probability map, `target` a same-shape binary mask."""
+    target = target.to(score.dtype)
+    intersect = (score * target).sum()
+    y_sum = (target * target).sum()
+    z_sum = (score * score).sum()
+    return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
+
+
+def dice_loss_nclass(probs: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                     smooth: float = 1e-5) -> torch.Tensor:
+    """Mean over classes of the soft Dice loss against one-hot labels."""
+    one_hot = F.one_hot(labels.long(), num_classes).to(probs.dtype)
+    dims = tuple(range(probs.dim() - 1))
+    intersect = (probs * one_hot).sum(dim=dims)
+    z_sum = (probs * probs).sum(dim=dims)
+    y_sum = (one_hot * one_hot).sum(dim=dims)
+    return (1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)).mean()
+
+
+def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """Elementwise (softmax(a) - softmax(b))^2, the caller reduces; no
+    gradient to the target (the mean-teacher convention)."""
+    a = torch.softmax(input_logits, dim=-1)
+    b = torch.softmax(target_logits, dim=-1).detach()
+    return (a - b) ** 2
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """KL(target || input), mean over ALL elements including the class axis
+    (F.kl_div's reduction='mean'); no gradient to the target."""
+    input_log = F.log_softmax(input_logits, dim=-1)
+    target = torch.softmax(target_logits, dim=-1).detach()
+    target_log = torch.log(target.clamp_min(1e-30))
+    return (target * (target_log - input_log)).mean()

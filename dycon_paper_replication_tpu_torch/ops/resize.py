@@ -5,7 +5,8 @@ coordinate conventions:
   * align_corners=False (half-pixel centers, the decoder's 2x upsample):
         src = (dst + 0.5) * in / out - 0.5, clamped at 0;
   * align_corners=True (the projection head):  src = dst * (in-1) / (out-1).
-Source indices are clamped to the valid range.
+Source indices are clamped to the valid range. Also the 2x max pool and the
+non-overlapping average pool of the FeCL mask.
 """
 
 from __future__ import annotations
@@ -63,3 +64,14 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     b, d1, d2, d3, c = x.shape
     x = x.reshape(b, d1 // 2, 2, d2 // 2, 2, d3 // 2, 2, c)
     return x.amax(dim=(2, 4, 6))
+
+
+def avg_pool_nonoverlap(x: torch.Tensor, kernel: tuple[int, int, int]) -> torch.Tensor:
+    """Non-overlapping average pool (kernel == stride) of a (B, D1, D2, D3)
+    volume, the contrastive-mask downsampler: an exact mean via reshape,
+    trailing remainders dropped (torch avg_pool3d's floor output size)."""
+    b, d1, d2, d3 = x.shape
+    k1, k2, k3 = kernel
+    o1, o2, o3 = d1 // k1, d2 // k2, d3 // k3
+    x = x[:, :o1 * k1, :o2 * k2, :o3 * k3]
+    return x.reshape(b, o1, k1, o2, k2, o3, k3).mean(dim=(2, 4, 6))

@@ -1,1 +1,1 @@
-"""Utilities: checkpoints."""
+"""Utilities: checkpoints and the experiment logger."""

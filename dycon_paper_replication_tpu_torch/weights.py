@@ -8,6 +8,13 @@ the same DHWIO layout, so a state_dict key is the dotted path of the leaf:
 params["up_concat1"]["conv2"]["w"] <-> "up_concat1.conv2.w",
 state["projection"]["bn1"]["mean"] <-> "projection.bn1.mean".
 Trees here hold numpy arrays; the JAX side converts with np.asarray.
+
+A JAX `TrainState` (step, params, model_state, teacher_params,
+teacher_state, opt_state) with numpy leaves converts to the port's
+`train.state.TrainState` and back, exactly: the momentum is the optax trace
+state (a params-shaped tree) and the schedule's count equals the step. The
+conversion reads the optax states by their field names, so it needs no
+optax.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-from .models.unet3d import UNet3DConfig
+from .models.unet3d import UNet3D, UNet3DConfig
+from .train.state import TrainState
 
 _STATE_LEAVES = ("mean", "var")
 
@@ -55,7 +63,7 @@ def state_dict_to_jax_tree(sd: dict[str, torch.Tensor]) -> tuple[dict, dict]:
     state: dict = {}
     for key, t in sd.items():
         target = state if key.rsplit(".", 1)[-1] in _STATE_LEAVES else params
-        _insert(target, key, t.detach().cpu().numpy())
+        _insert(target, key, t.detach().cpu().numpy().copy())  # no view of a live tensor
     return params, state
 
 
@@ -103,3 +111,39 @@ def init_jax_tree(cfg: UNet3DConfig, seed: int) -> tuple[dict, dict]:
     }
     state = {"projection": {"bn1": bn1_state, "bn2": bn2_state}}
     return params, state
+
+
+def jax_train_state_to_torch(js, cfg: UNet3DConfig,
+                             device: torch.device | str = "cpu") -> TrainState:
+    """A JAX TrainState with numpy leaves -> the port's TrainState of two
+    `cfg` UNet3Ds on `device`."""
+    nets = []
+    for params, state in ((js.params, js.model_state), (js.teacher_params, js.teacher_state)):
+        net = UNet3D(cfg).to(device)
+        net.load_state_dict(jax_tree_to_state_dict(params, state))
+        nets.append(net)
+    trace = next(el.trace for el in js.opt_state if "trace" in el._fields)
+    momentum = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                for k, v in _flatten(trace).items()}
+    return TrainState(nets[0], nets[1].requires_grad_(False), momentum, int(js.step))
+
+
+def torch_train_state_to_jax(state: TrainState, template):
+    """The inverse, into the structure of `template` (a JAX TrainState, or
+    one with numpy leaves): numpy leaves, optax states rebuilt with
+    `_replace`."""
+    params, mstate = state_dict_to_jax_tree(state.student.state_dict())
+    tparams, tstate = state_dict_to_jax_tree(state.teacher.state_dict())
+    trace: dict = {}
+    for k, v in state.momentum.items():
+        _insert(trace, k, v.detach().cpu().numpy().copy())
+    opt = []
+    for el in template.opt_state:
+        if "trace" in el._fields:
+            el = el._replace(trace=trace)
+        elif "count" in el._fields:
+            el = el._replace(count=np.asarray(state.step, np.asarray(el.count).dtype))
+        opt.append(el)
+    return template._replace(step=np.asarray(state.step, np.asarray(template.step).dtype),
+                             params=params, model_state=mstate, teacher_params=tparams,
+                             teacher_state=tstate, opt_state=type(template.opt_state)(opt))

@@ -6,8 +6,9 @@ the GPU: the folded model (fold-2 levels through K1) and the plain model
     python3 scripts/profile_torch_eval.py [--batch 4] [--reps 5]
 
 For each model it prints the wall ms per forward (CUDA events), then the
-device time per forward from torch.profiler grouped as K1, cuDNN/library
-convs and everything else (elementwise, reductions, copies), the share of
+device time per forward from torch.profiler grouped as K1, K1-dW (none in
+a forward), cuDNN/cuBLAS convs and matmuls and everything else
+(elementwise, reductions, copies; `profile_common.category`), the share of
 each, and the device's idle share of the wall time. Last line: one JSON
 object with the same numbers.
 """
@@ -22,14 +23,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def _category(name: str) -> str:
-    n = name.lower()
-    if "folded_conv3" in n:
-        return "k1"
-    if any(k in n for k in ("conv", "cudnn", "xmma", "implicit", "cutlass", "gemm", "sm90")):
-        return "library_conv"
-    return "other"
+from profile_common import device_ms_by_category  # noqa: E402
 
 
 def main() -> int:
@@ -78,23 +72,13 @@ def main() -> int:
                 for _ in range(args.reps):
                     fwd()
                 torch.cuda.synchronize()
-        by_cat = {"k1": 0.0, "library_conv": 0.0, "other": 0.0}
-        kernels = []
-        for ev in prof.key_averages():
-            # kernel events only: operator events carry their kernels' time as children
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            if "CUDA" not in str(ev.device_type) or dev_us <= 0:
-                continue
-            by_cat[_category(ev.key)] += dev_us / 1e3 / args.reps
-            kernels.append((dev_us / 1e3 / args.reps, ev.count // args.reps, ev.key[:90]))
+        by_cat, kernels = device_ms_by_category(prof, args.reps)
         busy = sum(by_cat.values())
         print(f"== {layout}: wall {wall_ms:.3f} ms per forward, device busy {busy:.3f} ms, "
               f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
         for cat, ms in by_cat.items():
-            print(f"   {cat:13s} {ms:9.3f} ms  {ms / busy if busy else 0:.3f}")
-        for ms, cnt, key in sorted(kernels, reverse=True)[:12]:
+            print(f"   {cat:8s} {ms:9.3f} ms  {ms / busy if busy else 0:.3f}")
+        for ms, cnt, key in kernels[:12]:
             print(f"   {ms:9.3f} ms  x{cnt:<4d} {key}")
         result[layout] = dict(wall_ms=wall_ms, device_busy_ms=busy,
                               idle_share=max(0.0, 1 - busy / wall_ms),

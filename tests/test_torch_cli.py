@@ -1,8 +1,17 @@
-"""The port's Pancreas test CLI, end to end on the CPU: a synthetic .h5 tree
-written under tmp_path, a full-width checkpoint saved by the port's
-checkpoint module at the flag-derived snapshot path, and the metric table
-printed. The same weights through the JAX CLI's engine and driver must give
-the same averages."""
+"""The port's Pancreas CLIs, end to end on the CPU.
+
+Test CLI: a synthetic .h5 tree written under tmp_path, a full-width
+checkpoint saved by the port's checkpoint module at the flag-derived
+snapshot path, and the metric table printed. The same weights through the
+JAX CLI's engine and driver must give the same averages.
+
+Train CLI (`--device cpu`, full-width UNet3D at patch 16^3, a synthetic
+.npz tree): 3 iterations with a validation and a full-state save, then
+`--resume auto`, which must restore exactly the saved state; and a time
+budget that stops cleanly after one step with a resumable checkpoint.
+"""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -13,11 +22,12 @@ from dycon_paper_replication_tpu.eval import SlidingWindowInference as JaxSW
 from dycon_paper_replication_tpu.eval import evaluator as jeval
 from dycon_paper_replication_tpu.models import net_factory_3d as jax_factory
 from dycon_paper_replication_tpu_torch import weights
-from dycon_paper_replication_tpu_torch.cli import test_pancreas
-from dycon_paper_replication_tpu_torch.config import make_config
+from dycon_paper_replication_tpu_torch.cli import test_pancreas, train_pancreas
+from dycon_paper_replication_tpu_torch.config import config_from_args, make_config
 from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
 from dycon_paper_replication_tpu_torch.eval import iter_h5_volumes
 from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+from dycon_paper_replication_tpu_torch.train.trainer import Trainer
 from dycon_paper_replication_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(1)
@@ -49,3 +59,53 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     paths = [str(root / "Pancreas_data" / n) for n in test_names]
     want = jeval.test_all_case(sw, jp, js, iter_h5_volumes(paths), nms=True)
     np.testing.assert_allclose(avg, want, atol=1e-6, rtol=0)
+
+
+def _train_argv(tmp_path, *extra):
+    root = tmp_path / "Pancreas"
+    if not root.exists():
+        make_pancreas(str(root), n_train=4, n_test=1, shape=(24, 24, 20), seed=2, suffix=".npz")
+    return ["--root_dir", str(root), "--snapshot_root", str(tmp_path / "runs"), "--device", "cpu",
+            "--patch_size", "16", "16", "16", "--batch_size", "2", "--labeled_bs", "1",
+            "--labelnum", "2", "--max_iterations", "3", "--val_every", "2", "--save_every", "3",
+            *extra]
+
+
+def _state_tensors(state):
+    return {**{f"s.{k}": v for k, v in state.student.state_dict().items()},
+            **{f"t.{k}": v for k, v in state.teacher.state_dict().items()},
+            **{f"m.{k}": v for k, v in state.momentum.items()}}
+
+
+def test_train_cli_runs_and_resumes_on_cpu(tmp_path):
+    argv = _train_argv(tmp_path)
+    first = Trainer(config_from_args("pancreas", argv))
+    assert first.device == torch.device("cpu") and first.state.student.cfg.layout == "NDHWC"
+    best = first.run()
+    assert first.state.step == 3
+    snap = first.snapshot_path
+    assert (tmp_path / "runs").exists() and snap.startswith(str(tmp_path / "runs"))
+    records = [json.loads(line) for line in open(f"{snap}/metrics.jsonl")]
+    losses = [r for r in records if r["tag"] == "info/loss"]
+    assert [r["step"] for r in losses] == [1, 2, 3]
+    assert all(np.isfinite(r["value"]) for r in records)
+    assert [r["step"] for r in records if r["tag"] == "info/Dice"] == [2]
+    saved = checkpoint.iter_checkpoint_path(snap, 3)
+    assert checkpoint.latest_checkpoint_path(snap, "unet_3D")[0] == saved
+
+    resumed = Trainer(config_from_args("pancreas", argv + ["--resume", "auto"]))
+    assert resumed.state.step == 3 and resumed.best_performance == best
+    want, got = _state_tensors(first.state), _state_tensors(resumed.state)
+    assert want.keys() == got.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    # the CLI itself, resumed at its last step: no step runs, the best stays
+    assert train_pancreas.main(argv + ["--resume", "auto"]) == best
+
+
+def test_train_cli_time_budget_stops_resumably(tmp_path):
+    argv = _train_argv(tmp_path, "--time_budget_s", "1e-9", "--max_iterations", "5")
+    trainer = Trainer(config_from_args("pancreas", argv))
+    trainer.run()
+    assert trainer.state.step == 1
+    path, _ = checkpoint.latest_checkpoint_path(trainer.snapshot_path, "unet_3D")
+    assert path == checkpoint.iter_checkpoint_path(trainer.snapshot_path, 1)

@@ -1,7 +1,8 @@
 """Guards on the port's boundaries: it imports without JAX (and without
 h5py, orbax or optax, which the card's machine lacks), it names nothing of
-the JAX package, and its kernel wrapper raises instead of falling back when
-CUDA is missing."""
+the JAX package, and its kernel wrappers, the autograd Function over them
+and the training entry point raise instead of falling back when CUDA is
+missing."""
 
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import torch
 
 from dycon_paper_replication_tpu_torch import config
 from dycon_paper_replication_tpu_torch.ops import folded_conv_cuda
+from dycon_paper_replication_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -68,6 +70,40 @@ def test_kernel_wrapper_raises_without_cuda(monkeypatch):
     # a CPU tensor takes the plain version and counts no launch
     assert k1(x, wf, to_phase=1).shape == (1, 3, 3, 3, 128)
     assert k1.launches == 0
+
+
+def test_dw_wrapper_and_autograd_function_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dw = folded_conv_cuda.FoldedConv3Dw()
+    x = torch.zeros(1, 2, 2, 2, 8)
+    dy = torch.zeros(1, 3, 3, 3, 128)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dw.launch(x, dy, to_phase=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dw(x.to("meta"), dy.to("meta"), to_phase=1)
+    assert dw.launches == 0
+    assert dw(x, dy, to_phase=1).shape == (2, 2, 2, 8, 128)  # CPU: the plain version
+    assert dw.launches == 0
+    # FoldedConv3Fn on a tensor that is not on the CPU reaches K1's launch in
+    # the forward, and (the forward stubbed) K1-dW's in the backward
+    xm = torch.zeros(1, 2, 2, 2, 8, device="meta")
+    wf = torch.zeros(2, 2, 2, 8, 128, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        folded_conv_cuda.FoldedConv3Fn.apply(xm, wf, 1)
+    monkeypatch.setattr(folded_conv_cuda, "folded_conv3",
+                        lambda *a, **k: torch.zeros(1, 3, 3, 3, 128, device="meta"))
+    y = folded_conv_cuda.FoldedConv3Fn.apply(xm, wf, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        y.sum().backward()
+
+
+def test_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.config_from_args("pancreas", ["--snapshot_root", str(tmp_path / "runs")])
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+    assert not (tmp_path / "runs").exists()
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
