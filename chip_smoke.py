@@ -9,7 +9,8 @@ once through its CLI. Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
   2. build K1 (ops/csrc/folded_conv3.cu) and K1-dW (ops/csrc/folded_conv3_dw.cu),
-     one nvcc each, in parallel;
+     one nvcc each, in parallel; K1-dW's SASS (cuobjdump) must hold
+     tensor-core MMA (HMMA) instructions in each instance of its kernel;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
      eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
      TF32 off, tolerance 1e-4 * max|plain|; its time beside the plain
@@ -21,7 +22,9 @@ once through its CLI. Phases, each timed on its own line:
      einsums) against a float64 plain version on the card; pass if the
      kernel's max error is at most max(1e-4 * max|ref|, 4 x the float32
      plain version's error), and a rerun is bit-identical; its time beside
-     the plain version's, one cuDNN weight-grad call's and the bound;
+     the plain version's, one cuDNN weight-grad call's and two bounds: the
+     float32 one (CUDA cores) and that of its three TF32 passes on the
+     tensor cores, which is its `bound_ms` in the kernels line;
   6. dx through K1 at the 7 training shapes whose input needs a gradient:
      time beside one cuDNN data-grad call's and the bound (error against
      the plain version printed);
@@ -31,16 +34,22 @@ once through its CLI. Phases, each timed on its own line:
      gradients of x and of every conv weight within 1e-4 * max|plain|, of
      each bias (in front of an InstanceNorm, so truly 0) within 1e-4 *
      max|plain| of its conv's weight gradient;
-  8. the folded UNet3D (through K1) against the plain UNet3D on one eval
+  8. one train step on the card against the same step on the CPU from
+     equal states (train/device_check.py: a full-width folded UNet3D,
+     patch (32, 32, 16), batch 4 of which 2 labeled, dropout 0; the losses,
+     parameters, momentum, EMA teacher and BatchNorm stats within
+     tests/test_torch_train_step.py's path-scaled tolerances), with 16 + 7
+     K1 and 8 K1-dW launches;
+  9. the folded UNet3D (through K1) against the plain UNet3D on one eval
      patch batch with the same weights, tolerance 1e-4 * max|plain|;
-  9. evaluation end to end: seeded weights in the JAX layout through the
+ 10. evaluation end to end: seeded weights in the JAX layout through the
      weight mapper into a checkpoint, one synthetic (144, 144, 112) volume
      written with numpy (80 patches at stride 16/4, all origins even so the
      folded path runs), the port's test_pancreas CLI on it with the K1
      launch count set to 0 before and read after (it must be 8 per forward
      chunk), and its label map against the plain engine's (>= 99.99 % of
      voxels agree);
- 10. training end to end: a synthetic Pancreas tree of 16 training and 2
+ 11. training end to end: a synthetic Pancreas tree of 16 training and 2
      validation cases of (120, 120, 100) as .npz, the train CLI's Trainer
      at the Pancreas defaults for 4 steps (val and save every 2), with the
      K1, K1 dx and K1-dW counts set to 0 before each step and read after it
@@ -50,7 +59,7 @@ once through its CLI. Phases, each timed on its own line:
      would look in a new one), which must start from exactly the saved
      state at step 4 and end at 6; ms per step, peak memory, validation
      vols/s;
- 11. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 12. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward in training, K1 dx, K1-dW), each with that path's
      launch count and the sums over its shapes; then
      `{"ok": true, "device": {...}}` last.
@@ -83,9 +92,10 @@ TRAIN_VOLUME = (120, 120, 100)
 TRAIN_STEPS, RESUME_STEPS = 4, 6
 SEED = 0
 REPS = 5
-# published dense peaks: (float32 FLOP/s on the CUDA cores, HBM bytes/s)
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
-         "H200": (67e12, 4.8e12), "H100": (67e12, 3.35e12)}
+# published dense peaks: (float32 FLOP/s on the CUDA cores, TF32 FLOP/s on
+# the tensor cores, HBM bytes/s)
+PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12), "H100 NVL": (60e12, 417.5e12, 3.9e12),
+         "H200": (67e12, 495e12, 4.8e12), "H100": (67e12, 495e12, 3.35e12)}
 # (layer, fold grid G of the input, L_in, L_out, to_phase) for one eval patch forward
 K1_SHAPES = [
     ("conv1.conv1", (48,) * 3, 8, 128, 1), ("conv1.conv2", (49,) * 3, 128, 128, 0),
@@ -126,23 +136,52 @@ def _time_ms(torch, fn, reps=REPS):
 
 
 def _bound(flops, nbytes, peaks):
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    """The least time for `flops` and `nbytes` (each input read once, each
+    output written once) two ways: in float32 on the CUDA cores (bound_ms,
+    ops_ms, bound_by), and as three TF32 passes on the tensor cores
+    (tf32x3_*); bytes_ms is common to both."""
+    t_bytes = nbytes / peaks[2] * 1e3
+    t_ops, t_tc = flops / peaks[0] * 1e3, 3 * flops / peaks[1] * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tf32x3_bound_ms=max(t_tc, t_bytes), tf32x3_ops_ms=t_tc,
+                tf32x3_bound_by="operations" if t_tc >= t_bytes else "bytes")
 
 
-def _kernel_entry(name, path, source, replaces, launches, rows):
+def _kernel_entry(name, path, source, replaces, launches, rows, bound="float32"):
     """One `{"kernels": [...]}` entry of one path: its launches in that
     path's run and the sums over the shapes that path gives the kernel once
-    each (one eval patch-batch forward, or one train step)."""
-    ops = sum(r["ops_ms"] for r in rows)
+    each (one eval patch-batch forward, or one train step). `bound` names
+    the arithmetic of the kernel's bound_ms: "float32" (CUDA cores) or
+    "tf32x3" (three TF32 passes on the tensor cores)."""
+    pre = "tf32x3_" if bound == "tf32x3" else ""
+    ops = sum(r[pre + "ops_ms"] for r in rows)
     err = max(r["max_abs_err"] for r in rows)
     return dict(name=name, path=path, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, max_err=err,
                 ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_ms=sum(r[pre + "bound_ms"] for r in rows),
                 bound_by="operations" if ops >= sum(r["bytes_ms"] for r in rows) else "bytes",
+                bound_kind=bound, float32_bound_ms=sum(r["bound_ms"] for r in rows),
                 library_ms=sum(r["library_ms"] for r in rows), shapes=rows)
+
+
+def check_dw_sass(path, nvcc):
+    """cuobjdump -sass of the K1-dW library: every instance of its kernel
+    must hold tensor-core MMA (HMMA, or HGMMA for wgmma) instructions.
+    Returns {function: count}."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if "folded_conv3_dw_kernel" in name:
+            counts[name] = sum(1 for line in block.splitlines()
+                               if "HMMA" in line or "HGMMA" in line)
+    _check(counts and all(counts.values()),
+           f"K1-dW's SASS: tensor-core MMA instructions per kernel instance {counts}")
+    return counts
 
 
 def phase_k1(torch, device, gen, peaks, shapes, batch, tag):
@@ -218,11 +257,12 @@ def phase_dw(torch, device, gen, peaks):
         library_ms = _time_ms(
             torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [False, True, False]))
         flops = 2 * TRAIN_BATCH * math.prod(q) * lin * lout * 8
+        bound = _bound(flops, 4 * (x.numel() + dy.numel() + dwf.numel()), peaks)
         row = dict(layer=layer, x=list(x.shape), dy=list(dy.shape), to_phase=to_phase,
                    max_abs_err=err, plain_f32_err=err_plain, tol=tol, max_abs_ref=scale,
                    library_vs_plain=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   tflops=flops / ms / 1e9,
-                   **_bound(flops, 4 * (x.numel() + dy.numel() + dwf.numel()), peaks))
+                   tflops=flops / ms / 1e9, tf32x3_share=bound["tf32x3_bound_ms"] / ms,
+                   float32_share=bound["bound_ms"] / ms, **bound)
         rows.append(row)
         print("k1_dw", json.dumps(row), flush=True)
         del x, dy, dwf, again, plain, lib
@@ -313,6 +353,28 @@ def phase_grad(torch, device, gen):
               f"scale {scale})")
         _check(bool(torch.isfinite(got).all()) and diff <= 1e-4 * scale,
                f"grad {k}: FoldedConv3Fn differs from plain autograd by {diff}")
+
+
+def phase_step_vs_cpu(torch, device):
+    """One train step on the card against the same step on the CPU from
+    equal states (train/device_check.py: the case and the tolerances)."""
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.train.device_check import check_step
+    from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
+
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    before = [c.launches for c in counters]
+    diffs, scalars, worst = check_step(device)
+    ran = [c.launches - n for c, n in zip(counters, before)]
+    print("step vs cpu:", json.dumps(dict(zip(SCALAR_METRICS, scalars.tolist()))),
+          f"launches K1 {ran[0]}, K1 dx {ran[1]}, K1-dW {ran[2]}")
+    print("step vs cpu: nearest its tolerance per group (difference / tolerance):",
+          json.dumps(worst))
+    for line in diffs:
+        print("step vs cpu:", line)
+    _check(not diffs, f"the card's train step differs from the CPU's at {len(diffs)} leaves")
+    _check(ran == [16, 7, 8], f"step vs cpu: launches {ran}, want [16, 7, 8]")
 
 
 def phase_model(torch, device, gen, nets):
@@ -509,7 +571,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     peaks = next(v for k, v in PEAKS.items() if k in kind) \
         if any(k in kind for k in PEAKS) else PEAKS["H100"]
-    print(f"bound peaks: {peaks[0] / 1e12} TFLOP/s float32, {peaks[1] / 1e12} TB/s")
+    print(f"bound peaks: {peaks[0] / 1e12} TFLOP/s float32, {peaks[1] / 1e12} TFLOP/s TF32 "
+          f"tensor cores, {peaks[2] / 1e12} TB/s")
     _phase("card", t0)
 
     t0 = time.perf_counter()
@@ -519,6 +582,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {src.name}:", line.strip())
     print(f"build_s {time.perf_counter() - t0:.3f}")
+    for fn, count in check_dw_sass(_build.library_path(DW_SOURCE), _build.nvcc()).items():
+        print(f"sass {fn}: {count} HMMA/HGMMA")
     _phase("build", t0)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -537,6 +602,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_grad(torch, device, gen)
     _phase("grad", t0)
+    t0 = time.perf_counter()
+    phase_step_vs_cpu(torch, device)
+    _phase("step_vs_cpu", t0)
 
     t0 = time.perf_counter()
     params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
@@ -568,7 +636,7 @@ def main() -> int:
         _kernel_entry("folded_conv3_dw", "train",
                       "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3_dw.cu",
                       "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:179 (_dwf)",
-                      train["k1_dw_launches"], dw_rows),
+                      train["k1_dw_launches"], dw_rows, bound="tf32x3"),
     ]
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -136,13 +136,33 @@ def folded_conv3_dw_plain(x: torch.Tensor, dy: torch.Tensor, *, to_phase: int) -
     return torch.stack(taps).reshape(2, 2, 2, x.shape[-1], dy.shape[-1])
 
 
+# K1-dW's launch shape (csrc/folded_conv3_dw.cu): 128-lane column tiles,
+# row tiles of 128 where L_in % 16 == 0 else 64, 32 voxels per stage, and
+# __launch_bounds__(256, 1): one block resident per SM.
+DW_STAGE_VOXELS = 32
+DW_BLOCKS_PER_SM = 1
+
+
+def dw_tiles(lin: int, lout: int) -> int:
+    """K1-dW's output tiles of one split: (8 L_in / row tile) x (L_out / 128)."""
+    return 8 * lin // (128 if lin % 16 == 0 else 64) * (lout // 128)
+
+
 def dw_splits(n_voxels: int, tiles: int, sms: int) -> tuple[int, int]:
-    """(splits, chunk) of K1-dW's split-K: about 4 blocks per SM over the
-    `tiles` output tiles, each split a whole number of 8-voxel stages, none
-    empty."""
-    want = max(1, -(-4 * sms // tiles))
-    chunk = max(8, -(-n_voxels // want))
-    chunk = -(-chunk // 8) * 8
+    """(splits, chunk) of K1-dW's split-K over `n_voxels`, each split a
+    whole number of 32-voxel stages and none empty. Of 1 to 4 full waves of
+    the card's resident blocks (DW_BLOCKS_PER_SM x `sms`), the split count
+    whose last wave is fullest, the fewest on a tie: the splits are equal,
+    so an idle slot in the last wave is time lost."""
+    slots = DW_BLOCKS_PER_SM * sms
+    least = -(-slots // tiles)
+
+    def fill(s: int) -> float:
+        return tiles * s / (-(-tiles * s // slots) * slots)
+
+    want = max(range(least, 4 * least + 1), key=lambda s: (fill(s), -s))
+    chunk = -(-n_voxels // want)
+    chunk = -(-chunk // DW_STAGE_VOXELS) * DW_STAGE_VOXELS
     return -(-n_voxels // chunk), chunk
 
 
@@ -189,7 +209,7 @@ class FoldedConv3Dw:
         if n_voxels * max(lin, lout) >= 2 ** 31:
             raise ValueError(f"folded_conv3_dw: {n_voxels} voxels out of range")
         _check_dense("folded_conv3_dw", x, dy)
-        tiles = (lout // 128) * -(-8 * lin // 128)
+        tiles = dw_tiles(lin, lout)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits, chunk = dw_splits(n_voxels, tiles, sms)
         ws = torch.empty((splits, 8 * lin, lout), device=x.device, dtype=torch.float32)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 and K1-dW against their plain
 versions, FoldedConv3Fn's gradients against autograd of the plain conv, the
-folded UNet3D on CUDA against the same module on the CPU, and its
-gradients against autograd of the plain folded path. Marked `cuda`; each
-test skips when no GPU is present. On the card:
+folded UNet3D on CUDA against the same module on the CPU, its gradients
+against autograd of the plain folded path, and one train step on CUDA
+against the same step on the CPU. Marked `cuda`; each test skips when no
+GPU is present. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 
@@ -20,10 +21,14 @@ from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
     FoldedConv3,
     FoldedConv3Dw,
     K1ValuedPlainConvFn,
+    folded_conv3,
     folded_conv3_dw,
     folded_conv3_dw_plain,
+    folded_conv3_dx,
     folded_conv3_plain,
 )
+from dycon_paper_replication_tpu_torch.train.device_check import check_step
+from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -155,3 +160,16 @@ def test_folded_unet_grads_match_plain_autograd(cuda):
         normalised_bias = k.endswith(".b") and not k.startswith(("final.", "out_conv2."))
         ref = grads[1][k[:-1] + "w"] if normalised_bias else want
         assert (got - want).abs().max().item() <= 1e-4 * ref.abs().max().item(), k
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One train step on the card against the same step on the CPU from
+    equal states: losses, parameters, momentum, EMA teacher and BatchNorm
+    stats within the path-scaled tolerances (train/device_check.py), through
+    16 + 7 K1 and 8 K1-dW launches."""
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    before = [c.launches for c in counters]
+    diffs, scalars, _ = check_step(cuda)
+    assert [c.launches - n for c, n in zip(counters, before)] == [16, 7, 8]
+    assert diffs == []
+    assert np.isfinite(scalars).all() and scalars[SCALAR_METRICS.index("skipped")] == 0

@@ -31,8 +31,11 @@ from dycon_paper_replication_tpu.ops.folded_conv_pallas import (
 from dycon_paper_replication_tpu_torch.ops import folding as tfold
 from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
     FoldedConv3Fn,
+    DW_BLOCKS_PER_SM,
+    DW_STAGE_VOXELS,
     K1ValuedPlainConvFn,
     dw_splits,
+    dw_tiles,
     folded_conv3_dw_plain,
     folded_conv3_plain,
 )
@@ -244,3 +247,19 @@ def test_dw_splits_cover_the_voxels(n, tiles, sms):
     splits, chunk = dw_splits(n, tiles, sms)
     assert chunk % 8 == 0 and splits >= 1
     assert (splits - 1) * chunk < n <= splits * chunk
+
+
+@pytest.mark.parametrize("grid,lin,lout,to_phase", [
+    ((56, 56, 48), 8, 128, 1), ((57, 57, 49), 128, 128, 0), ((28, 28, 24), 128, 256, 1),
+    ((29, 29, 25), 256, 256, 0), ((28, 28, 24), 768, 256, 1), ((56, 56, 48), 384, 128, 1)])
+def test_dw_splits_fill_the_card_at_the_training_shapes(grid, lin, lout, to_phase):
+    """At the Pancreas training shapes (B 8) on a 132-SM card: whole stages
+    per split, and the last wave of blocks at least 95 % full."""
+    n = 8 * int(np.prod([g + (1 if to_phase == 1 else -1) for g in grid]))
+    tiles = dw_tiles(lin, lout)
+    assert tiles == 8 * lin // (64 if lin == 8 else 128) * (lout // 128)
+    splits, chunk = dw_splits(n, tiles, 132)
+    assert chunk % DW_STAGE_VOXELS == 0 and (splits - 1) * chunk < n <= splits * chunk
+    slots = DW_BLOCKS_PER_SM * 132
+    blocks = splits * tiles
+    assert blocks >= slots and blocks / (-(-blocks // slots) * slots) >= 0.95
