@@ -9,14 +9,19 @@ once through its CLI. Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
   2. build K1 (ops/csrc/folded_conv3.cu) and K1-dW (ops/csrc/folded_conv3_dw.cu),
-     one nvcc each, in parallel; K1-dW's SASS (cuobjdump) must hold
-     tensor-core MMA (HMMA) instructions in each instance of its kernel;
+     one nvcc each, in parallel; the SASS (cuobjdump) of each must hold
+     tensor-core MMA (HMMA) instructions in every instance of its kernel;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
      eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
      TF32 off, tolerance 1e-4 * max|plain|; its time beside the plain
-     version's, one cuDNN conv call's (library_ms) and the FLOP/byte bound;
+     version's, one cuDNN conv call's (library_ms) and two bounds: the
+     float32 one (CUDA cores) and that of its three TF32 passes on the
+     tensor cores, which is its `bound_ms` in the kernels line;
   4. K1 forward the same way at the 8 shapes one training step gives it
-     (patch 112x112x96, B = TRAIN_BATCH);
+     (patch 112x112x96, B = TRAIN_BATCH); then NaN through FoldedConv3Fn at
+     one of them: a few NaN voxels in x must make y NaN at exactly the
+     outputs they reach, and a few in the cotangent dx at exactly the
+     voxels they reach (the train step's NaN/Inf skip depends on it);
   5. K1-dW at the 8 shapes one training step gives it (patch 112x112x96,
      B = TRAIN_BATCH): the kernel and the float32 plain version (eight slab
      einsums) against a float64 plain version on the card; pass if the
@@ -25,9 +30,9 @@ once through its CLI. Phases, each timed on its own line:
      the plain version's, one cuDNN weight-grad call's and two bounds: the
      float32 one (CUDA cores) and that of its three TF32 passes on the
      tensor cores, which is its `bound_ms` in the kernels line;
-  6. dx through K1 at the 7 training shapes whose input needs a gradient:
-     time beside one cuDNN data-grad call's and the bound (error against
-     the plain version printed);
+  6. dx through K1 at the 7 training shapes whose input needs a gradient,
+     against the plain version with K1's tolerance: time beside one cuDNN
+     data-grad call's and the two bounds;
   7. one full-width folded UnetConv3 block (up_concat1, B = TRAIN_BATCH)
      through FoldedConv3Fn against autograd of the plain folded path (with
      K1's forward values, so both sides share their ReLU masks): the
@@ -166,21 +171,21 @@ def _kernel_entry(name, path, source, replaces, launches, rows, bound="float32")
                 library_ms=sum(r["library_ms"] for r in rows), shapes=rows)
 
 
-def check_dw_sass(path, nvcc):
-    """cuobjdump -sass of the K1-dW library: every instance of its kernel
-    must hold tensor-core MMA (HMMA, or HGMMA for wgmma) instructions.
-    Returns {function: count}."""
+def check_sass(path, nvcc, kernel, label):
+    """cuobjdump -sass of a kernel library: every instance of the kernel
+    named `kernel` must hold tensor-core MMA (HMMA, or HGMMA for wgmma)
+    instructions. Returns {function: count}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
-        if "folded_conv3_dw_kernel" in name:
+        if kernel in name:
             counts[name] = sum(1 for line in block.splitlines()
                                if "HMMA" in line or "HGMMA" in line)
     _check(counts and all(counts.values()),
-           f"K1-dW's SASS: tensor-core MMA instructions per kernel instance {counts}")
+           f"{label}'s SASS: tensor-core MMA instructions per kernel instance {counts}")
     return counts
 
 
@@ -208,14 +213,58 @@ def phase_k1(torch, device, gen, peaks, shapes, batch, tag):
         plain_ms = _time_ms(torch, lambda: folded_conv3_plain(x, wf, to_phase=to_phase))
         library_ms = _time_ms(torch, lambda: F.conv3d(xn, wn, padding=pad))
         flops = 2 * batch * math.prod(y.shape[1:4]) * lin * lout * 8
+        bound = _bound(flops, 4 * (x.numel() + wf.numel() + y.numel()), peaks)
         row = dict(layer=layer, x=list(x.shape), wf=list(wf.shape), to_phase=to_phase,
                    max_abs_err=err, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, tflops=flops / ms / 1e9,
-                   **_bound(flops, 4 * (x.numel() + wf.numel() + y.numel()), peaks))
+                   tf32x3_share=bound["tf32x3_bound_ms"] / ms,
+                   float32_share=bound["bound_ms"] / ms, **bound)
         rows.append(row)
         print(tag, json.dumps(row), flush=True)
         del x, wf, y, want, xn, wn
     return rows
+
+
+def phase_nan(torch, device, gen, shape):
+    """NaN through FoldedConv3Fn at one training shape: y is NaN at exactly
+    the outputs that a NaN voxel of x reaches, and dx at exactly the voxels
+    that a NaN voxel of the cotangent reaches (each reach counted by a conv
+    of the NaN indicator with a 2^3 box of ones; every lane of wf is
+    nonzero)."""
+    import torch.nn.functional as F
+
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import FoldedConv3Fn
+
+    layer, g, lin, lout, to_phase = shape
+    q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
+
+    def with_nans(t):
+        idx = [torch.randint(0, n, (4,), device=device, generator=gen) for n in t.shape[:4]]
+        t[idx[0], idx[1], idx[2], idx[3], 0] = float("nan")
+        return t
+
+    def reach(t, phase):
+        hit = torch.isnan(t).any(-1).float()[:, None]
+        box = torch.ones(1, 1, 2, 2, 2, device=device)
+        return (F.conv3d(hit, box, padding=1 if phase == 1 else 0)[:, 0] > 0)[..., None]
+
+    x = with_nans(torch.randn(TRAIN_BATCH, *g, lin, device=device, generator=gen))
+    wf = torch.randn(2, 2, 2, lin, lout, device=device, generator=gen) / math.sqrt(8 * lin)
+    cot = with_nans(torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen))
+    xr = x.clone().requires_grad_()
+    y = FoldedConv3Fn.apply(xr, wf, to_phase)
+    y.backward(cot)
+    torch.cuda.synchronize()
+    for name, got, src, phase in (("y", y, x, to_phase), ("dx", xr.grad, cot, 1 - to_phase)):
+        want = reach(src, phase).expand_as(got)
+        n_nan = int(want.sum().item()) // got.shape[-1]
+        print(f"nan {layer} {name}: {n_nan} voxels reached by {int(torch.isnan(src).sum())} "
+              f"NaN inputs")
+        _check(n_nan > 0 and torch.equal(torch.isnan(got), want) and
+               bool(torch.isfinite(got[~want]).all()),
+               f"NaN through FoldedConv3Fn ({layer}, {name}): not NaN at exactly the "
+               f"{n_nan} voxels reached")
+    del x, wf, cot, xr, y
 
 
 def _conv_backward(torch, dy, x, wf, to_phase, mask):
@@ -297,10 +346,12 @@ def phase_dx(torch, device, gen, peaks):
         library_ms = _time_ms(
             torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [True, False, False]))
         flops = 2 * TRAIN_BATCH * math.prod(g) * lin * lout * 8
+        bound = _bound(flops, 4 * (dy.numel() + wf.numel() + dx.numel()), peaks)
         row = dict(layer=layer, dy=list(dy.shape), dx=list(dx.shape), to_phase=1 - to_phase,
                    max_abs_err=err, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, tflops=flops / ms / 1e9,
-                   **_bound(flops, 4 * (dy.numel() + wf.numel() + dx.numel()), peaks))
+                   tf32x3_share=bound["tf32x3_bound_ms"] / ms,
+                   float32_share=bound["bound_ms"] / ms, **bound)
         rows.append(row)
         print("k1_dx", json.dumps(row), flush=True)
         del x, dy, wf, wf_t, dx, want, lib
@@ -582,8 +633,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {src.name}:", line.strip())
     print(f"build_s {time.perf_counter() - t0:.3f}")
-    for fn, count in check_dw_sass(_build.library_path(DW_SOURCE), _build.nvcc()).items():
-        print(f"sass {fn}: {count} HMMA/HGMMA")
+    for src, kernel, label in ((SOURCE, "folded_conv3_kernel", "K1"),
+                               (DW_SOURCE, "folded_conv3_dw_kernel", "K1-dW")):
+        for fn, count in check_sass(_build.library_path(src), _build.nvcc(), kernel,
+                                    label).items():
+            print(f"sass {label} {fn}: {count} HMMA/HGMMA")
     _phase("build", t0)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -592,6 +646,7 @@ def main() -> int:
     _phase("kernels", t0)
     t0 = time.perf_counter()
     k1_train_rows = phase_k1(torch, device, gen, peaks, TRAIN_SHAPES, TRAIN_BATCH, "k1_train")
+    phase_nan(torch, device, gen, TRAIN_SHAPES[2])
     _phase("k1_train", t0)
     t0 = time.perf_counter()
     dw_rows = phase_dw(torch, device, gen, peaks)
@@ -627,12 +682,13 @@ def main() -> int:
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     kernels = [
-        _kernel_entry("folded_conv3", "eval", k1_src, K1_REPLACES, eval_launches, k1_rows),
+        _kernel_entry("folded_conv3", "eval", k1_src, K1_REPLACES, eval_launches, k1_rows,
+                      bound="tf32x3"),
         _kernel_entry("folded_conv3_train", "train", k1_src, K1_REPLACES,
-                      train["k1_launches"], k1_train_rows),
+                      train["k1_launches"], k1_train_rows, bound="tf32x3"),
         _kernel_entry("folded_conv3_dx", "train", k1_src,
                       "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)",
-                      train["k1_dx_launches"], dx_rows),
+                      train["k1_dx_launches"], dx_rows, bound="tf32x3"),
         _kernel_entry("folded_conv3_dw", "train",
                       "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3_dw.cu",
                       "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:179 (_dwf)",

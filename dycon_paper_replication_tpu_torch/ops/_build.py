@@ -2,8 +2,8 @@
 plain C interface, and load them with ctypes.
 
 Each source compiles on its own (no PyTorch headers, a few seconds) into
-`ops/_build/<stem>-<hash>.so`, where the hash covers the source and the
-flags, so an unchanged source is never rebuilt. Builds of several sources
+`ops/_build/<stem>-<hash>.so`, where the hash covers the source, the
+headers beside it and the flags, so an unchanged source is never rebuilt. Builds of several sources
 run in parallel, one nvcc each. Nothing here runs at import time.
 """
 
@@ -34,8 +34,14 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """Where the library built from `src` goes: its name hashes the source,
+    every header (`*.cuh`) beside it, which a source may include, and the
+    flags, so an edit to a shared header rebuilds every source."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(*sources: Path) -> dict[Path, str]:

@@ -4,8 +4,10 @@ autograd Function over both, and their plain PyTorch versions.
 Counterpart of dycon_paper_replication_tpu/ops/folded_conv_pallas.py:
 `folded_conv3_pallas` (K1) and the custom VJP `_conv_wf` / `_conv_wf_bwd` /
 `_dwf` (FoldedConv3Fn, with K1-dW for the weight half). The kernels are CUDA
-C++ for sm_90a in `csrc/folded_conv3.cu` and `csrc/folded_conv3_dw.cu`; each
-header says what bounds it on an H100 and what the design does about that.
+C++ for sm_90a in `csrc/folded_conv3.cu` and `csrc/folded_conv3_dw.cu`, both
+on the tensor cores in three TF32 passes with the helpers of
+`csrc/tf32_mma.cuh`; each header says what bounds it on an H100 and what the
+design does about that.
 They are built with nvcc at first use and bound with ctypes (see
 `_build.py`).
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """K1-dW's design choices, re-measured: variants of
-`ops/csrc/folded_conv3_dw.cu` made by text edits, built with nvcc, and
-timed and checked at the 8 convs of one Pancreas training step on one GPU.
+`ops/csrc/folded_conv3_dw.cu` and its helper header `ops/csrc/tf32_mma.cuh`
+made by text edits, built with nvcc, and timed and checked at the 8 convs
+of one Pancreas training step on one GPU.
 
     python3 scripts/k1_dw_variants.py [--reps 10] [--out DIR]
 
@@ -61,16 +62,17 @@ def _split(text: str, new: str) -> str:
     return SPLIT.sub(lambda _: new, text)
 
 
-def variants(src: str) -> dict[str, tuple[str, int]]:
-    """{name: (source, blocks per SM)}."""
+def variants(src: str, header: str) -> dict[str, tuple[str, str, int]]:
+    """{name: (source, header, blocks per SM)}."""
     running = _once(src, MMA_STAGE_SUM, MMA_STAGE_SUM.replace("d[i][j]", "acc[i][j]"))
     running = _once(running, "acc[i][j][e] += d[i][j][e];", "(void)d[i][j][e];")
     two = _once(src, "__launch_bounds__(NT, 1)", "__launch_bounds__(NT, 2)")
     two = _once(two, "constexpr int STAGES = 4;", "constexpr int STAGES = 3;")
-    return {"as-is": (src, 1), "cvt": (_split(src, CVT), 1), "running": (running, 1),
+    return {"as-is": (src, header, 1), "cvt": (src, _split(header, CVT), 1),
+            "running": (running, header, 1),
             "one-pass": (_once(src, MMA_STAGE_SUM,
-                               "          mma_tf32(d[i][j], ah, bh[j]);\n"), 1),
-            "no-split": (_split(src, RAW), 1), "2-blocks": (two, 2)}
+                               "          mma_tf32(d[i][j], ah, bh[j]);\n"), header, 1),
+            "no-split": (src, _split(header, RAW), 1), "2-blocks": (two, header, 2)}
 
 
 def main() -> int:
@@ -92,11 +94,16 @@ def main() -> int:
     args.out = args.out or str(_build.BUILD_DIR / "k1_dw_variants")
     os.makedirs(args.out, exist_ok=True)
     procs, blocks_per_sm = {}, {}
-    for name, (text, per_sm) in variants(fc.DW_SOURCE.read_text()).items():
+    header = fc.DW_SOURCE.parent / "tf32_mma.cuh"
+    for name, (text, head, per_sm) in variants(fc.DW_SOURCE.read_text(),
+                                               header.read_text()).items():
         blocks_per_sm[name] = per_sm
-        src = os.path.join(args.out, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
+        # each variant in its own directory, beside its own copy of the header
+        os.makedirs(os.path.join(args.out, name), exist_ok=True)
+        src = os.path.join(args.out, name, fc.DW_SOURCE.name)
+        for path, content in ((src, text), (os.path.join(args.out, name, header.name), head)):
+            with open(path, "w") as f:
+                f.write(content)
         procs[name] = subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(args.out, f"{name}.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

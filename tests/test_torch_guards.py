@@ -50,7 +50,8 @@ def test_port_imports_without_jax_h5py_orbax_optax():
 
 
 def test_port_names_nothing_of_the_jax_package():
-    files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [REPO / "chip_smoke.py"]
+    files = (list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + list(PORT.rglob("*.cuh"))
+             + [REPO / "chip_smoke.py"])
     for path in files:
         text = path.read_text()
         for needle in ("dycon_paper_replication_tpu.", "import jax", "from jax"):

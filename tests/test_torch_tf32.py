@@ -12,6 +12,20 @@ contraction, and held to the gate that `chip_smoke.py` and
 `tests/test_torch_cuda.py` hold the kernel to against a float64 dW:
 max(1e-4 x max|ref|, 4 x the float32 plain version's error). Three passes
 meet it, at the float32 plain version's own error; one TF32 pass does not.
+
+K1 (ops/csrc/folded_conv3.cu) runs the split with lo rounded to nearest
+too, over a shorter contraction, K = 8 L_in (tap, lane), which raises the
+question that decides its accumulators: how often does a fresh sum start?
+The tensor core does not round its float32 sums to nearest, so here each
+m16n8k8 product is emulated as the hardware is modelled: the 8 products
+exact, the sum and the 8 products aligned to the largest of them with 3
+bits below float32's last (truncated), added exactly, and the result
+truncated toward zero to float32. Held to K1's gate, 1e-4 x max|y| against
+float64: three passes into the running sum meet it but use half of it at
+L_in 768; one pass misses it; a fresh sum per stage of 8 taps (K1's) or per
+tap meets it at the float32 plain version's max error. In rms a stage's sum
+of 24 truncated products drifts to 1.5-3.6x the float32 plain version's
+error, a tap's stays at it.
 """
 
 import numpy as np
@@ -72,6 +86,13 @@ def test_rna_tf32_rounds_to_ten_mantissa_bits():
     assert ((hi.double() + lo.double() - r.double()).abs() <= 2.0 ** -21 * r.abs().double()).all()
 
 
+def _rn_lo(r: torch.Tensor) -> torch.Tensor:
+    """K1's lo (split_tf32_rn): rounded to nearest where r is finite,
+    truncated where it is not."""
+    finite = (r.view(torch.int32) & 0x7F800000) != 0x7F800000
+    return torch.where(finite, _rna_tf32(r), _trunc_tf32(r))
+
+
 def test_split_keeps_nan_and_inf_non_finite():
     """A NaN whose top mantissa bits are set (CUDA's canonical NaN among
     them) rounds to a zero hi; its lo, truncated, stays NaN."""
@@ -81,6 +102,22 @@ def test_split_keeps_nan_and_inf_non_finite():
     hi = _rna_tf32(v)
     lo = _trunc_tf32(v - hi)
     assert not (torch.isfinite(hi) & torch.isfinite(lo)).any()
+
+
+def test_k1_split_keeps_nan_and_inf_non_finite():
+    """K1's split rounds lo to nearest where v - hi is finite; where v is a
+    NaN or an Inf, v - hi is not, and lo stays non-finite. A finite v keeps
+    hi + lo within 2^-22 of it."""
+    bits = torch.tensor([0x7FFFFFFF, -1, 0x7FC00000, 0x7F800001, 0x7F800000, -0x800000],
+                        dtype=torch.int32)
+    v = bits.view(torch.float32)
+    hi = _rna_tf32(v)
+    assert not (torch.isfinite(hi) & torch.isfinite(_rn_lo(v - hi))).any()
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    hi = _rna_tf32(r)
+    lo = _rn_lo(r - hi)
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi.double() + lo.double() - r.double()).abs() <= 2.0 ** -22 * r.abs().double()).all()
 
 
 @pytest.mark.parametrize("passes,meets", [(3, True), (1, False)])
@@ -99,3 +136,87 @@ def test_tf32_passes_against_the_k1_dw_gate(passes, meets):
         assert err <= 4 * err_plain <= gate, (err, err_plain, gate)
     else:
         assert err > gate, (err, gate)
+
+
+K1_STAGE_TAPS = 8  # taps (of 8 lanes each) per stage of K1's ring
+
+
+def _mma_rz(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """c + a @ b for one 16x8x8 TF32 tile as the tensor core is modelled
+    (module doc): c (M, N) float32, a (M, 8) and b (8, N) TF32 values."""
+    terms = torch.cat([c.double()[:, None], a.double()[:, :, None] * b.double()[None]], 1)
+    _, e = torch.frexp(terms.abs().amax(1, keepdim=True))
+    quantum = torch.ldexp(torch.ones_like(terms), e - 27)  # 3 bits below float32's last
+    f = (torch.trunc(terms / quantum) * quantum).sum(1)
+    r = f.float()
+    return torch.where(r.double().abs() > f.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _k1_tf32(x: torch.Tensor, w: torch.Tensor, passes: int, taps_per_sum: int | None
+             ) -> torch.Tensor:
+    """x (M, K) @ w (K, N) as K1 computes it: each operand split into hi and
+    lo, both rounded to nearest; K in taps of 8 lanes, each tap's passes (lo*hi, hi*lo, hi*hi, or hi*hi alone) as modelled mma
+    products; a fresh sum every `taps_per_sum` taps, added into the running
+    one by a float32 add, or (None) every product straight into the
+    running sum."""
+    xh, wh = _rna_tf32(x), _rna_tf32(w)
+    xl, wl = _rna_tf32(x - xh), _rna_tf32(w - wh)  # K1 rounds lo too (split_tf32_rn)
+    terms = [(xh, wh)] if passes == 1 else [(xl, wh), (xh, wl), (xh, wh)]
+    out = torch.zeros(x.shape[0], w.shape[1])
+    step = 8 * (taps_per_sum or K1_STAGE_TAPS)
+    for s in range(0, x.shape[1], step):
+        acc = out if taps_per_sum is None else torch.zeros_like(out)
+        for k in range(s, s + step, 8):
+            for a, b in terms:
+                acc = _mma_rz(acc, a[:, k:k + 8], b[k:k + 8])
+        out = acc if taps_per_sum is None else out + acc
+    return out
+
+
+def _k1_case(lin: int, voxels: int):
+    """x (voxels, 8 L_in) standard normal, w (8 L_in, 8) scaled by
+    1/sqrt(8 L_in) as the smoke's wf, and x @ w in float64."""
+    rng = np.random.default_rng(lin)
+    k = 8 * lin
+    x = torch.from_numpy(rng.standard_normal((voxels, k), np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, 8)) / np.sqrt(k)).astype(np.float32))
+    return x, w, x.double() @ w.double()
+
+
+VARIANTS = {"stage sums": (3, K1_STAGE_TAPS), "tap sums": (3, 1), "running sum": (3, None),
+            "one pass": (1, K1_STAGE_TAPS)}
+
+
+@pytest.mark.parametrize("lin", [128, 768])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_k1_tf32_against_its_gate(variant, lin):
+    """Over 256 output voxels and 8 lanes, against float64 with K1's gate
+    1e-4 x max|ref|: fresh sums per stage (K1's choice) or per tap within
+    4x of the float32 plain version's max error; the running sum within the
+    gate, but above a quarter of it at L_in 768; one pass outside it."""
+    x, w, ref = _k1_case(lin, 256)
+    err_plain = ((x @ w).double() - ref).abs().max().item()
+    gate = 1e-4 * ref.abs().max().item()
+    err = (_k1_tf32(x, w, *VARIANTS[variant]).double() - ref).abs().max().item()
+    if variant in ("tap sums", "stage sums"):
+        assert err <= 4 * err_plain <= gate, (err, err_plain, gate)
+    elif variant == "running sum":
+        assert 20 * err_plain < err <= gate, (err, err_plain, gate)
+        assert err > gate / 4 if lin == 768 else err < gate / 4, (err, gate)
+    else:
+        assert err > gate, (err, gate)
+
+
+@pytest.mark.parametrize("lin", [8, 128])
+def test_k1_fresh_sums_rms_error(lin):
+    """Over 1024 output voxels, the rms error against float64: a fresh sum
+    per stage (K1's) within 4x of the float32 plain version's, and at least
+    twice that of a fresh sum per tap, which stays within 1.25x of it."""
+    x, w, ref = _k1_case(lin, 1024)
+
+    def rms(y):
+        return (y.double() - ref).square().mean().sqrt().item()
+
+    plain = rms(x @ w)
+    stage, tap = (rms(_k1_tf32(x, w, 3, n)) for n in (K1_STAGE_TAPS, 1))
+    assert stage <= 4 * plain and stage >= 2 * tap and tap <= 1.25 * plain, (stage, tap, plain)
