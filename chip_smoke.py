@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the checkout and drives the port's two
-paths, Pancreas sliding-window evaluation and Pancreas DyCON training, each
-once through its CLI. Phases, each timed on its own line:
+Builds the port's CUDA kernels from the checkout and drives the port's three
+paths, Pancreas sliding-window evaluation, Pancreas DyCON training and
+ISLES-2022 training with whole-volume evaluation, each through its CLI.
+Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build K1 (ops/csrc/folded_conv3.cu) and K1-dW (ops/csrc/folded_conv3_dw.cu),
-     one nvcc each, in parallel; the SASS (cuobjdump) of each must hold
-     tensor-core MMA (HMMA) instructions in every instance of its kernel;
+  2. build K1 (ops/csrc/folded_conv3.cu), K1-dW (ops/csrc/folded_conv3_dw.cu)
+     and K2 (ops/csrc/fecl_fused.cu), one nvcc each, in parallel; the SASS
+     (cuobjdump) of K1 and K1-dW must hold tensor-core MMA (HMMA)
+     instructions in every instance of their kernels;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
      eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
      TF32 off, tolerance 1e-4 * max|plain|; its time beside the plain
@@ -43,18 +45,32 @@ once through its CLI. Phases, each timed on its own line:
      equal states (train/device_check.py: a full-width folded UNet3D,
      patch (32, 32, 16), batch 4 of which 2 labeled, dropout 0; the losses,
      parameters, momentum, EMA teacher and BatchNorm stats within
-     tests/test_torch_train_step.py's path-scaled tolerances), with 16 + 7
+     tests/test_torch_train_step.py's path-scaled tolerances, the CPU step
+     taking the card's side at the kinks within the margin), with 16 + 7
      K1 and 8 K1-dW launches;
-  9. the folded UNet3D (through K1) against the plain UNet3D on one eval
+  9. fecl: K2 forward and backward at the ISLES defaults (B 8, N 9216,
+     D 256, teacher on) against its plain twin in float32 and in float64
+     (phase_fecl: the gates), a rerun bit-identical, a NaN row NaN in the
+     loss; times beside the 3xTF32 bound of the JAX algorithm's products
+     (its `bound_ms`, as for K1 and K1-dW) and the float32 one (no single
+     PyTorch call computes it: library_ms null);
+ 10. k1_isles: K1 forward, dx and K1-dW at the 8 ISLES training shapes
+     (patch 96x96x64, B = TRAIN_BATCH: non-cubic fold grids), the gates of
+     4, 6 and 5; K1 at the 8 shapes of one ISLES whole-volume forward
+     (batch 1, the (112, 112, 73) volume padded to (112, 112, 80)), the
+     gate of 3;
+ 11. step_vs_cpu_isles: phase 8's check in its ISLES case (fused FeCL: one
+     K2 call each way on the card, the twin on the CPU);
+ 12. the folded UNet3D (through K1) against the plain UNet3D on one eval
      patch batch with the same weights, tolerance 1e-4 * max|plain|;
- 10. evaluation end to end: seeded weights in the JAX layout through the
+ 13. evaluation end to end: seeded weights in the JAX layout through the
      weight mapper into a checkpoint, one synthetic (144, 144, 112) volume
      written with numpy (80 patches at stride 16/4, all origins even so the
      folded path runs), the port's test_pancreas CLI on it with the K1
      launch count set to 0 before and read after (it must be 8 per forward
      chunk), and its label map against the plain engine's (>= 99.99 % of
      voxels agree);
- 11. training end to end: a synthetic Pancreas tree of 16 training and 2
+ 14. training end to end: a synthetic Pancreas tree of 16 training and 2
      validation cases of (120, 120, 100) as .npz, the train CLI's Trainer
      at the Pancreas defaults for 4 steps (val and save every 2), with the
      K1, K1 dx and K1-dW counts set to 0 before each step and read after it
@@ -64,9 +80,19 @@ once through its CLI. Phases, each timed on its own line:
      would look in a new one), which must start from exactly the saved
      state at step 4 and end at 6; ms per step, peak memory, validation
      vols/s;
- 12. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
-     eval, K1 forward in training, K1 dx, K1-dW), each with that path's
-     launch count and the sums over its shapes; then
+ 15. isles_train: the same for ISLES-2022 through the ISLES train CLI's
+     Trainer at its defaults (50 + 2 synthetic (112, 112, 73) .npz cases,
+     whole-volume validation), with one K2 forward and one K2 backward
+     call per step besides the K1 and K1-dW launches;
+ 16. isles_eval: the ISLES test CLI on the first run's best checkpoint (8
+     K1 launches per volume), its label maps against the plain (NDHWC)
+     model's whole-volume prediction with the same weights (>= 99.99 % of
+     voxels agree); vols/s;
+ 17. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+     eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
+     dx and K1-dW and K2 forward and backward in ISLES training, K1 in
+     ISLES whole-volume evaluation), each
+     with that path's launch count and the sums over its shapes; then
      `{"ok": true, "device": {...}}` last.
 
 Any failed check raises and the process exits non-zero. It exits non-zero
@@ -96,7 +122,7 @@ TRAIN_BATCH = 8
 TRAIN_VOLUME = (120, 120, 100)
 TRAIN_STEPS, RESUME_STEPS = 4, 6
 SEED = 0
-REPS = 5
+REPS = 3  # timed repetitions per kernel call (5 before the ISLES phases were added)
 # published dense peaks: (float32 FLOP/s on the CUDA cores, TF32 FLOP/s on
 # the tensor cores, HBM bytes/s)
 PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12), "H100 NVL": (60e12, 417.5e12, 3.9e12),
@@ -116,6 +142,29 @@ TRAIN_SHAPES = [
     ("up_concat1.conv1", (56, 56, 48), 384, 128, 1), ("up_concat1.conv2", (57, 57, 49), 128, 128, 0),
 ]
 K1_REPLACES = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:107 (folded_conv3_pallas)"
+# ISLES-2022 training: patch 96x96x64, projection scale 4, so the FeCL runs
+# over N = 24 * 24 * 16 = 9216 rows of D = 256 (K2), and the 8 K1 convs see
+# non-cubic fold grids
+ISLES_PATCH = (96, 96, 64)
+ISLES_SHAPES = [
+    ("conv1.conv1", (48, 48, 32), 8, 128, 1), ("conv1.conv2", (49, 49, 33), 128, 128, 0),
+    ("conv2.conv1", (24, 24, 16), 128, 256, 1), ("conv2.conv2", (25, 25, 17), 256, 256, 0),
+    ("up_concat2.conv1", (24, 24, 16), 768, 256, 1), ("up_concat2.conv2", (25, 25, 17), 256, 256, 0),
+    ("up_concat1.conv1", (48, 48, 32), 384, 128, 1), ("up_concat1.conv2", (49, 49, 33), 128, 128, 0),
+]
+ISLES_VOLUME = (112, 112, 73)  # not a multiple of 16: the whole-volume pad runs
+# the 8 K1 convs of one whole-volume forward (batch 1): the volume padded to
+# (112, 112, 80), so fold grid (56, 56, 40) at the first level
+ISLES_EVAL_SHAPES = [
+    ("conv1.conv1", (56, 56, 40), 8, 128, 1), ("conv1.conv2", (57, 57, 41), 128, 128, 0),
+    ("conv2.conv1", (28, 28, 20), 128, 256, 1), ("conv2.conv2", (29, 29, 21), 256, 256, 0),
+    ("up_concat2.conv1", (28, 28, 20), 768, 256, 1), ("up_concat2.conv2", (29, 29, 21), 256, 256, 0),
+    ("up_concat1.conv1", (56, 56, 40), 384, 128, 1), ("up_concat1.conv2", (57, 57, 41), 128, 128, 0),
+]
+ISLES_TRAIN_CASES, ISLES_VAL_CASES = 50, 2  # labelnum 10 = 45 labeled volumes, 5 not
+FECL_D = 256
+K2_SOURCE = "dycon_paper_replication_tpu_torch/ops/csrc/fecl_fused.cu"
+K2_REPLACES = "dycon_paper_replication_tpu/ops/fecl_fused.py:66 (_build: core / core_bwd)"
 
 
 def _phase(name, t0):
@@ -275,13 +324,14 @@ def _conv_backward(torch, dy, x, wf, to_phase, mask):
         [1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], 1, mask)
 
 
-def phase_dw(torch, device, gen, peaks):
-    """K1-dW against float32 and float64 plain versions at the training shapes."""
+def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw"):
+    """K1-dW against float32 and float64 plain versions at one path's
+    training shapes."""
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3_dw, folded_conv3_dw_plain)
 
     rows = []
-    for layer, g, lin, lout, to_phase in TRAIN_SHAPES:
+    for layer, g, lin, lout, to_phase in shapes:
         q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
         x = torch.randn(TRAIN_BATCH, *g, lin, device=device, generator=gen)
         dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
@@ -313,19 +363,19 @@ def phase_dw(torch, device, gen, peaks):
                    tflops=flops / ms / 1e9, tf32x3_share=bound["tf32x3_bound_ms"] / ms,
                    float32_share=bound["bound_ms"] / ms, **bound)
         rows.append(row)
-        print("k1_dw", json.dumps(row), flush=True)
+        print(tag, json.dumps(row), flush=True)
         del x, dy, dwf, again, plain, lib
     return rows
 
 
-def phase_dx(torch, device, gen, peaks):
-    """dx through K1 (taps flipped and transposed, opposite phase) at the
-    training shapes whose input needs a gradient."""
+def phase_dx(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dx"):
+    """dx through K1 (taps flipped and transposed, opposite phase) at one
+    path's training shapes whose input needs a gradient."""
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3_dx, folded_conv3_plain)
 
     rows = []
-    for layer, g, lin, lout, to_phase in TRAIN_SHAPES[1:]:
+    for layer, g, lin, lout, to_phase in shapes[1:]:
         q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
         x = torch.empty(TRAIN_BATCH, *g, lin, device=device)
         dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
@@ -353,7 +403,7 @@ def phase_dx(torch, device, gen, peaks):
                    tf32x3_share=bound["tf32x3_bound_ms"] / ms,
                    float32_share=bound["bound_ms"] / ms, **bound)
         rows.append(row)
-        print("k1_dx", json.dumps(row), flush=True)
+        print(tag, json.dumps(row), flush=True)
         del x, dy, wf, wf_t, dx, want, lib
     return rows
 
@@ -406,26 +456,171 @@ def phase_grad(torch, device, gen):
                f"grad {k}: FoldedConv3Fn differs from plain autograd by {diff}")
 
 
-def phase_step_vs_cpu(torch, device):
+def phase_step_vs_cpu(torch, device, config="pancreas"):
     """One train step on the card against the same step on the CPU from
-    equal states (train/device_check.py: the case and the tolerances)."""
+    equal states, the CPU step taking the card's side at kinks within the
+    margin (train/device_check.py: the cases, the margin and the
+    tolerances). The ISLES case runs the fused FeCL: one K2 call each way."""
+    from dycon_paper_replication_tpu_torch.ops.fecl_fused import fecl_bwd, fecl_fwd
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3, folded_conv3_dw, folded_conv3_dx)
     from dycon_paper_replication_tpu_torch.train.device_check import check_step
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
 
-    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw, fecl_fwd, fecl_bwd)
+    want = [16, 7, 8] + ([1, 1] if config == "isles22" else [0, 0])
     before = [c.launches for c in counters]
-    diffs, scalars, worst = check_step(device)
+    diffs, scalars, worst, sides = check_step(device, config=config)
     ran = [c.launches - n for c, n in zip(counters, before)]
-    print("step vs cpu:", json.dumps(dict(zip(SCALAR_METRICS, scalars.tolist()))),
-          f"launches K1 {ran[0]}, K1 dx {ran[1]}, K1-dW {ran[2]}")
-    print("step vs cpu: nearest its tolerance per group (difference / tolerance):",
-          json.dumps(worst))
+    tag = f"step vs cpu ({config}):"
+    print(tag, json.dumps(dict(zip(SCALAR_METRICS, scalars.tolist()))),
+          f"launches K1 {ran[0]}, K1 dx {ran[1]}, K1-dW {ran[2]}, K2 {ran[3]} + {ran[4]}")
+    print(tag, "nearest its tolerance per group (difference / tolerance):", json.dumps(worst))
+    print(tag, "kink sides (values within the margin; of them, on the card's side and not "
+          "their own):", json.dumps(sides))
     for line in diffs:
-        print("step vs cpu:", line)
-    _check(not diffs, f"the card's train step differs from the CPU's at {len(diffs)} leaves")
-    _check(ran == [16, 7, 8], f"step vs cpu: launches {ran}, want [16, 7, 8]")
+        print(tag, line)
+    _check(not diffs, f"the card's train step ({config}) differs from the CPU's at "
+                      f"{len(diffs)} leaves")
+    _check(ran == want, f"step vs cpu ({config}): launches {ran}, want {want}")
+
+
+def _isles_fecl_inputs(torch, device, gen):
+    """The fused FeCL's inputs at the ISLES defaults: the (B, N) binary mask
+    pooled from ellipsoid labels at the ISLES patch as train/step.py pools it
+    (the derived kernel, 4 per axis), and L2-normalised student and teacher
+    rows from a seed: a shared direction, one per class and noise, so that
+    pairs of different class have cs spread around 0.3, the cross term's
+    threshold."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.data.synthetic import _ellipsoid_volume
+    from dycon_paper_replication_tpu_torch.ops.resize import avg_pool_nonoverlap
+
+    rng = np.random.default_rng(SEED)
+    labels = np.stack([_ellipsoid_volume(rng, ISLES_PATCH)[1] for _ in range(TRAIN_BATCH)])
+    mask = avg_pool_nonoverlap(torch.from_numpy(labels).to(device).float(), (4, 4, 4))
+    mask = (mask > 0.5).float().reshape(TRAIN_BATCH, -1).contiguous()
+
+    def unit(t):
+        return t / t.norm(dim=-1, keepdim=True)
+
+    def noise(*shape):
+        return torch.randn(*shape, FECL_D, device=device, generator=gen) / math.sqrt(FECL_D)
+
+    shared, classes = unit(noise(1)[0]), unit(noise(2))
+    feat = unit(shared + classes[mask.long()] + 1.2 * noise(*mask.shape)).contiguous()
+    tfeat = unit(feat + 0.3 * noise(*mask.shape)).contiguous()
+    return feat, mask, tfeat
+
+
+def phase_fecl(torch, device, gen, peaks):
+    """K2 (the fused FeCL, forward and backward) at the ISLES defaults (B 8,
+    N 9216, D 256, teacher on, thresholds 1.3 / 0.3) against its plain twin
+    on the card in float32 and a float64 twin: the loss within 1e-5 relative
+    of float64, dF within 1e-4 x max|dF of the float32 twin|; the float64
+    twin takes K2's side (cs > neg_thresh, from float32 cs of the same
+    inputs) at pairs within 1e-5 of the threshold, as the step check does
+    with its margin; a rerun bit-identical; a NaN row makes the loss NaN.
+    Times beside two bounds from the JAX algorithm's count of B x N x N x D
+    products (3 forward, 5 backward): three TF32 passes on the tensor cores
+    (the float32-accurate rate K1 and K1-dW are held to, the kernels line's
+    bound_ms) and float32 on the CUDA cores (K2's arithmetic today)."""
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
+
+    feat, mask, tfeat = _isles_fecl_inputs(torch, device, gen)
+    b, n, d = feat.shape
+    kw = dict(temperature=0.6, gamma=2.0, use_focal=True, pos_thresh=1.3, neg_thresh=0.3,
+              row_chunk=512)
+    o = ff.FeclOptions(0.6, 2.0, True, 1.3, 0.3, 1.0, 512)
+
+    def loss_and_grad(f, m, t):
+        f = f.clone().requires_grad_()
+        loss = ff.fecl_loss_fused(f, m, t, **kw)
+        loss.backward()
+        return loss.detach(), f.grad
+
+    def twin():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(ff, "fecl_fwd", ff._twin_forward))
+        stack.enter_context(mock.patch.object(ff, "fecl_bwd", ff._twin_backward))
+        return stack
+
+    res = ff.fecl_fwd.launch(feat, mask, tfeat, o)
+    loss, grad = loss_and_grad(feat, mask, tfeat)
+    res2 = ff.fecl_fwd.launch(feat, mask, tfeat, o)
+    loss2, grad2 = loss_and_grad(feat, mask, tfeat)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(x, y) for x, y in zip(res, res2)) and torch.equal(loss, loss2)
+           and torch.equal(grad, grad2), "K2: a rerun is not bit-identical")
+    with twin():
+        res_p = ff._twin_forward(feat, mask, tfeat, o)
+        loss_p, grad_p = loss_and_grad(feat, mask, tfeat)
+    near = {}
+
+    def k2_side(rows, cs, neg_t, own):
+        f, t = (torch.nn.functional.pad(x, (0, 0, 0, cs.shape[2] - n)) for x in (feat, tfeat))
+        card = torch.einsum("btd,bnd->btn", f[:, rows], t) > float(neg_t)
+        close = (cs - neg_t).abs() <= 1e-5
+        side = torch.where(close, card, own)
+        near[rows.start] = (int(close.sum()), int((side != own).sum()))
+        return side
+
+    f64, m64, t64 = feat.double(), mask.double(), tfeat.double()
+    with twin(), mock.patch.object(ff, "cross_side", k2_side):
+        res_64 = ff._twin_forward(f64, m64, t64, o)
+        loss_64, grad_64 = loss_and_grad(f64, m64, t64)
+    torch.cuda.synchronize()
+    cnt = float(res[6].sum())
+    err_loss = abs(float(loss) - float(loss_64))
+    err_loss_plain = abs(float(loss_p) - float(loss_64))
+    err_grad = (grad - grad_p).abs().max().item()
+    scale_grad = grad_p.abs().max().item()
+    names = ("col_max", "S", "row_sum", "row_sum_unf", "rho", "c_sum", "c_cnt")
+    resid = {k: dict(vs_plain=(x - y).abs().max().item() / max(y.abs().max().item(), 1e-30),
+                     vs_f64=(x.double() - z).abs().max().item() / max(z.abs().max().item(), 1e-30))
+             for k, x, y, z in zip(names, res, res_p, res_64)}
+    print("fecl: loss K2", float(loss), "plain", float(loss_p), "float64", float(loss_64),
+          f"(|K2 - f64| {err_loss}, |plain - f64| {err_loss_plain}); hard pairs {cnt:.0f}, "
+          f"within 1e-5 of the threshold {sum(v[0] for v in near.values())}, on K2's side "
+          f"and not their own {sum(v[1] for v in near.values())}")
+    print("fecl: dF max |K2 - plain|", err_grad, "max |dF plain|", scale_grad,
+          "max |K2 - f64|", (grad.double() - grad_64).abs().max().item(),
+          "max |plain - f64|", (grad_p.double() - grad_64).abs().max().item())
+    print("fecl: residuals, max difference / max |reference|:", json.dumps(resid))
+    _check(math.isfinite(float(loss)) and err_loss <= 1e-5 * abs(float(loss_64)),
+           f"K2 loss {float(loss)} vs float64 {float(loss_64)}")
+    _check(bool(torch.isfinite(grad).all()) and err_grad <= 1e-4 * scale_grad,
+           f"K2 dF differs from the plain twin's by {err_grad} (max |dF| {scale_grad})")
+    bad = feat.clone()
+    bad[b - 1, n // 3, 7] = float("nan")
+    with torch.no_grad():
+        _check(bool(torch.isnan(ff.fecl_loss_fused(bad, mask, tfeat, **kw))),
+               "K2: a NaN row does not make the loss NaN")
+    del grad2, res2, res_p, res_64, grad_64, f64, m64, t64, bad
+
+    col_max, s_all, rho = res[0], res[1], res[4]
+    a_all = (ff._row_weights(mask) / (b * n)).contiguous()
+    g_cross = 1.0 / (cnt + ff.EPS)
+    ms_fwd = _time_ms(torch, lambda: ff.fecl_fwd.launch(feat, mask, tfeat, o))
+    ms_bwd = _time_ms(torch, lambda: ff.fecl_bwd.launch(feat, mask, tfeat, col_max, s_all, rho,
+                                                        a_all, g_cross, o))
+    plain_fwd = _time_ms(torch, lambda: ff._twin_forward(feat, mask, tfeat, o), reps=2)
+    plain_bwd = _time_ms(torch, lambda: ff._twin_backward(feat, mask, tfeat, col_max, s_all, rho,
+                                                           a_all, g_cross, o), reps=2)
+    product = 2 * b * n * n * d
+    rows = {}
+    for name, ms, plain_ms, products, nbytes, err in (
+            ("fwd", ms_fwd, plain_fwd, 3, 4 * (2 * b * n * d + 8 * b * n), err_loss),
+            ("bwd", ms_bwd, plain_bwd, 5, 4 * (3 * b * n * d + 5 * b * n), err_grad)):
+        bound = _bound(products * product, nbytes, peaks)
+        rows[name] = dict(shape=[b, n, d], products=products, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=None,
+                          tflops=products * product / ms / 1e9,
+                          float32_share=bound["bound_ms"] / ms,
+                          tf32x3_share=bound["tf32x3_bound_ms"] / ms, **bound)
+        print("fecl", name, json.dumps(rows[name]), flush=True)
+    return rows
 
 
 def phase_model(torch, device, gen, nets):
@@ -503,43 +698,38 @@ def phase_eval(torch, nets, tmp):
     return launches
 
 
-def phase_train(torch, tmp):
-    """Training end to end through the train CLI's Trainer at the Pancreas
-    defaults: 4 steps, then a resume from step 4 to 6. Every step runs with
-    the K1, K1 dx and K1-dW counts set to 0 before it and read after it."""
-    import numpy as np
-
+def _drive_trainer(torch, dataset, argv, counters, want, tag):
+    """The train CLI's Trainer for `dataset`: `argv` + --max_iterations
+    TRAIN_STEPS, then a resume from the step-TRAIN_STEPS checkpoint to
+    RESUME_STEPS, which must start from exactly the saved state. Every step
+    runs with each counter of `counters` ({name: wrapper}) set to 0 before
+    it and read after it, and must launch `want` ({name: count}), with
+    finite scalars and no skip. Returns the launch sums, ms per step (the
+    median of steps 2..TRAIN_STEPS), peak memory, the validation times and
+    the first run's snapshot path."""
     from dycon_paper_replication_tpu_torch.config import config_from_args
-    from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
-    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
-        folded_conv3, folded_conv3_dw, folded_conv3_dx)
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
     from dycon_paper_replication_tpu_torch.train.trainer import Trainer
     from dycon_paper_replication_tpu_torch.utils import checkpoint
 
-    root = os.path.join(tmp, "PancreasTrain")
-    make_pancreas(root, n_train=16, n_test=2, shape=TRAIN_VOLUME, seed=SEED, suffix=".npz")
-    argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, "train_runs"),
-            "--device", "cuda", "--val_every", "2", "--save_every", "2"]
-    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
     steps, val_s = [], []
 
     def trainer_for(extra):
-        trainer = Trainer(config_from_args("pancreas", argv + extra))
+        trainer = Trainer(config_from_args(dataset, argv + extra))
         step, validate = trainer.train_step, trainer.validate
 
         def counted_step(*args, **kwargs):
-            for c in counters:
+            for c in counters.values():
                 c.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*args, **kwargs)
             vals = out.tolist()
             ms = (time.perf_counter() - t0) * 1e3
-            row = dict(zip(("k1", "k1_dx", "k1_dw"), (c.launches for c in counters)), ms=ms,
+            row = dict(**{k: c.launches for k, c in counters.items()}, ms=ms,
                        **dict(zip(SCALAR_METRICS, vals)))
             steps.append(row)
-            print("train step", json.dumps(row), flush=True)
+            print(tag, "step", json.dumps(row), flush=True)
             return out
 
         def timed_validate():
@@ -547,7 +737,7 @@ def phase_train(torch, tmp):
             dice = validate()
             torch.cuda.synchronize()
             val_s.append(time.perf_counter() - t0)
-            print(f"validation: dice {dice}, {val_s[-1]:.3f} s", flush=True)
+            print(f"{tag} validation: dice {dice}, {val_s[-1]:.3f} s", flush=True)
             return dice
 
         trainer.train_step, trainer.validate = counted_step, timed_validate
@@ -556,46 +746,155 @@ def phase_train(torch, tmp):
     torch.cuda.reset_peak_memory_stats()
     first = trainer_for(["--max_iterations", str(TRAIN_STEPS)])
     first.run()
-    _check(first.state.step == TRAIN_STEPS, f"step {first.state.step} after the first run")
+    _check(first.state.step == TRAIN_STEPS, f"{tag}: step {first.state.step} after the first run")
     saved = checkpoint.iter_checkpoint_path(first.snapshot_path, TRAIN_STEPS)
     for n in range(2, TRAIN_STEPS + 1, 2):
         path = checkpoint.iter_checkpoint_path(first.snapshot_path, n)
         _check(os.path.isfile(path), f"no checkpoint {path}")
-    print("checkpoints:", sorted(os.listdir(first.snapshot_path)))
-    want = {**{f"student.{k}": v.cpu() for k, v in first.state.student.state_dict().items()},
-            **{f"teacher.{k}": v.cpu() for k, v in first.state.teacher.state_dict().items()},
-            **{f"momentum.{k}": v.cpu() for k, v in first.state.momentum.items()}}
+    print(f"{tag} checkpoints:", sorted(os.listdir(first.snapshot_path)))
+    want_state = {**{f"student.{k}": v.cpu() for k, v in first.state.student.state_dict().items()},
+                  **{f"teacher.{k}": v.cpu() for k, v in first.state.teacher.state_dict().items()},
+                  **{f"momentum.{k}": v.cpu() for k, v in first.state.momentum.items()}}
+    snapshot = first.snapshot_path
     del first
 
     second = trainer_for(["--max_iterations", str(RESUME_STEPS), "--resume", saved])
     got = {**{f"student.{k}": v for k, v in second.state.student.state_dict().items()},
            **{f"teacher.{k}": v for k, v in second.state.teacher.state_dict().items()},
            **{f"momentum.{k}": v for k, v in second.state.momentum.items()}}
-    _check(second.state.step == TRAIN_STEPS, f"resumed at step {second.state.step}")
-    _check(got.keys() == want.keys() and all(torch.equal(got[k].cpu(), want[k]) for k in want),
-           "the resumed state differs from the saved one")
+    _check(second.state.step == TRAIN_STEPS, f"{tag}: resumed at step {second.state.step}")
+    _check(got.keys() == want_state.keys()
+           and all(torch.equal(got[k].cpu(), want_state[k]) for k in want_state),
+           f"{tag}: the resumed state differs from the saved one")
     second.run()
-    _check(second.state.step == RESUME_STEPS, f"step {second.state.step} after the resume")
+    _check(second.state.step == RESUME_STEPS, f"{tag}: step {second.state.step} after the resume")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     del second
 
-    _check(len(steps) == RESUME_STEPS, f"{len(steps)} steps ran")
+    _check(len(steps) == RESUME_STEPS, f"{tag}: {len(steps)} steps ran")
     for i, row in enumerate(steps):
-        _check((row["k1"], row["k1_dx"], row["k1_dw"]) == (16, 7, 8),
-               f"step {i + 1}: launches K1 {row['k1']} + dx {row['k1_dx']} (want 16 + 7 = 23), "
-               f"K1-dW {row['k1_dw']} (want 8)")
+        ran = {k: row[k] for k in counters}
+        _check(ran == want, f"{tag} step {i + 1}: launches {ran}, want {want}")
         _check(all(math.isfinite(row[k]) for k in SCALAR_METRICS) and not row["skipped"],
-               f"step {i + 1}: {row}")
+               f"{tag} step {i + 1}: {row}")
     ms_step = statistics.median(r["ms"] for r in steps[1:TRAIN_STEPS])
+    return dict(launches={k: sum(r[k] for r in steps) for k in counters}, ms_per_step=ms_step,
+                all_ms=[round(r["ms"], 3) for r in steps], peak_gib=peak_gb, val_s=val_s,
+                snapshot=snapshot)
+
+
+def phase_train(torch, tmp):
+    """Training end to end through the train CLI's Trainer at the Pancreas
+    defaults: 4 steps, then a resume from step 4 to 6; 16 + 7 K1 and 8
+    K1-dW launches a step."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+
+    root = os.path.join(tmp, "PancreasTrain")
+    make_pancreas(root, n_train=16, n_test=2, shape=TRAIN_VOLUME, seed=SEED, suffix=".npz")
+    argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, "train_runs"),
+            "--device", "cuda", "--val_every", "2", "--save_every", "2"]
+    counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw)
+    out = _drive_trainer(torch, "pancreas", argv, counters, dict(k1=16, k1_dx=7, k1_dw=8),
+                         "train")
     n_val = 2
-    print(f"train: {len(steps)} steps, {ms_step:.3f} ms per step (median of steps 2-"
-          f"{TRAIN_STEPS}; all: {[round(r['ms'], 3) for r in steps]}), peak memory "
-          f"{peak_gb:.3f} GiB, validation {[round(s, 3) for s in val_s]} s for {n_val} "
-          f"volumes = {n_val / float(np.median(val_s)):.4f} vols/s (median)")
-    return dict(k1_launches=sum(r["k1"] for r in steps),
-                k1_dx_launches=sum(r["k1_dx"] for r in steps),
-                k1_dw_launches=sum(r["k1_dw"] for r in steps),
-                ms_per_step=ms_step, peak_gib=peak_gb)
+    print(f"train: {RESUME_STEPS} steps, {out['ms_per_step']:.3f} ms per step (median of steps "
+          f"2-{TRAIN_STEPS}; all: {out['all_ms']}), peak memory {out['peak_gib']:.3f} GiB, "
+          f"validation {[round(v, 3) for v in out['val_s']]} s for {n_val} volumes = "
+          f"{n_val / float(np.median(out['val_s'])):.4f} vols/s (median)")
+    return out
+
+
+def phase_isles_train(torch, tmp):
+    """ISLES-2022 training end to end through the train CLI's Trainer at the
+    ISLES defaults (batch 8 of which 4 labeled, labelnum 10 = 45 labeled
+    volumes, patch 96x96x64, fecl_chunk 512 through the fused FeCL): a
+    synthetic tree of ISLES_TRAIN_CASES + ISLES_VAL_CASES volumes of
+    ISLES_VOLUME as .npz, 4 steps with whole-volume validation and a save
+    every 2, then a resume from step 4 to 6; 16 + 7 K1, 8 K1-dW and one K2
+    call each way a step."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.data.synthetic import make_isles22
+    from dycon_paper_replication_tpu_torch.ops.fecl_fused import fecl_bwd, fecl_fwd
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+
+    root = os.path.join(tmp, "ISLES22")
+    t0 = time.perf_counter()
+    make_isles22(root, n_train=ISLES_TRAIN_CASES, n_val=ISLES_VAL_CASES, shape=ISLES_VOLUME,
+                 seed=SEED, suffix=".npz")
+    print(f"isles_train: wrote {ISLES_TRAIN_CASES} + {ISLES_VAL_CASES} cases of "
+          f"{ISLES_VOLUME} in {time.perf_counter() - t0:.3f} s")
+    runs = os.path.join(tmp, "isles_runs")
+    argv = ["--root_dir", root, "--snapshot_root", runs, "--device", "cuda", "--val_every", "2",
+            "--save_every", "2"]
+    counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw,
+                    k2_fwd=fecl_fwd, k2_bwd=fecl_bwd)
+    out = _drive_trainer(torch, "isles22", argv, counters,
+                         dict(k1=16, k1_dx=7, k1_dw=8, k2_fwd=1, k2_bwd=1), "isles_train")
+    print(f"isles_train: {RESUME_STEPS} steps, {out['ms_per_step']:.3f} ms per step (median of "
+          f"steps 2-{TRAIN_STEPS}; all: {out['all_ms']}), peak memory {out['peak_gib']:.3f} GiB, "
+          f"whole-volume validation {[round(v, 3) for v in out['val_s']]} s for "
+          f"{ISLES_VAL_CASES} volumes = {ISLES_VAL_CASES / float(np.median(out['val_s'])):.4f} "
+          f"vols/s (median)")
+    return dict(out, root=root, runs=runs)
+
+
+def phase_isles_eval(torch, device, isles):
+    """The ISLES test CLI on the checkpoint of the first training run
+    (best model, seg head, one whole-volume forward per val case, 8 K1
+    launches each); its label maps against the plain (NDHWC) model's
+    whole-volume prediction with the same weights: >= 99.99 % of voxels
+    agree."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.cli import test_isles22
+    from dycon_paper_replication_tpu_torch.data import ISLESDataset
+    from dycon_paper_replication_tpu_torch.eval import evaluator, iter_volumes
+    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    preds = []
+    real_map = evaluator.WholeVolumeInference.map
+
+    def tee(self, volumes, group=1):
+        for pred, label in real_map(self, volumes, group):
+            preds.append(pred)
+            yield pred, label
+
+    argv = ["--root_dir", isles["root"], "--snapshot_root", isles["runs"], "--device", "cuda",
+            "--max_iterations", str(TRAIN_STEPS)]
+    folded_conv3.launches = 0
+    with mock.patch.object(evaluator.WholeVolumeInference, "map", tee):
+        t0 = time.perf_counter()
+        summary = test_isles22.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches = folded_conv3.launches
+    print(f"isles_eval: {len(preds)} volumes, K1 launches {launches}, cli wall {cli_s:.3f} s, "
+          f"{len(preds) / cli_s:.4f} vols/s; dice {summary['dice']}")
+    _check(len(preds) == ISLES_VAL_CASES and launches == 8 * ISLES_VAL_CASES,
+           f"isles_eval: {len(preds)} volumes, K1 launches {launches}")
+    _check(all(math.isfinite(summary[k]) for k in ("dice", "hd95", "asd", "sensitivity",
+                                                    "specificity")), f"metrics {summary}")
+    plain = UNet3D(UNet3DConfig(layout="NDHWC", scale_factor=4)).to(device).eval()
+    checkpoint.restore_checkpoint(checkpoint.best_checkpoint_path(isles["snapshot"], "unet_3D"),
+                                  plain)
+    wv = evaluator.WholeVolumeInference(plain, ISLES_PATCH)
+    paths = ISLESDataset(isles["root"], split="val").paths
+    for pred, (image, _) in zip(preds, iter_volumes(paths, label_key="mask")):
+        want = wv.predict(image)
+        agree = float((pred == want).mean())
+        print(f"isles_eval: label agreement folded (CLI) vs plain {agree:.7f}, shape "
+              f"{pred.shape}, foreground {int(pred.sum())} vs {int(want.sum())} voxels")
+        _check(pred.shape == ISLES_VOLUME and agree >= 0.9999,
+               f"isles_eval: label agreement {agree} < 0.9999")
+    return dict(vols_per_s=len(preds) / cli_s, k1_launches=launches)
 
 
 def main() -> int:
@@ -609,6 +908,7 @@ def main() -> int:
     from dycon_paper_replication_tpu_torch.config import resolve_device
     from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
     from dycon_paper_replication_tpu_torch.ops import _build
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import DW_SOURCE, SOURCE
 
     t_all = time.perf_counter()
@@ -627,7 +927,7 @@ def main() -> int:
     _phase("card", t0)
 
     t0 = time.perf_counter()
-    logs = _build.build(SOURCE, DW_SOURCE)
+    logs = _build.build(SOURCE, DW_SOURCE, fecl_fused.SOURCE)
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -660,6 +960,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_step_vs_cpu(torch, device)
     _phase("step_vs_cpu", t0)
+    t0 = time.perf_counter()
+    fecl_rows = phase_fecl(torch, device, gen, peaks)
+    _phase("fecl", t0)
+    t0 = time.perf_counter()
+    k1_isles_rows = phase_k1(torch, device, gen, peaks, ISLES_SHAPES, TRAIN_BATCH, "k1_isles")
+    dx_isles_rows = phase_dx(torch, device, gen, peaks, ISLES_SHAPES, "k1_dx_isles")
+    dw_isles_rows = phase_dw(torch, device, gen, peaks, ISLES_SHAPES, "k1_dw_isles")
+    k1_isles_eval_rows = phase_k1(torch, device, gen, peaks, ISLES_EVAL_SHAPES, 1,
+                                  "k1_isles_eval")
+    _phase("k1_isles", t0)
+    t0 = time.perf_counter()
+    phase_step_vs_cpu(torch, device, "isles22")
+    _phase("step_vs_cpu_isles", t0)
 
     t0 = time.perf_counter()
     params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
@@ -679,21 +992,44 @@ def main() -> int:
         t0 = time.perf_counter()
         train = phase_train(torch, tmp)
         _phase("train", t0)
+        t0 = time.perf_counter()
+        isles = phase_isles_train(torch, tmp)
+        _phase("isles_train", t0)
+        t0 = time.perf_counter()
+        isles_eval = phase_isles_eval(torch, device, isles)
+        _phase("isles_eval", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
+    dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
+    dw_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3_dw.cu"
+    dw_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:179 (_dwf)"
     kernels = [
         _kernel_entry("folded_conv3", "eval", k1_src, K1_REPLACES, eval_launches, k1_rows,
                       bound="tf32x3"),
         _kernel_entry("folded_conv3_train", "train", k1_src, K1_REPLACES,
-                      train["k1_launches"], k1_train_rows, bound="tf32x3"),
-        _kernel_entry("folded_conv3_dx", "train", k1_src,
-                      "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)",
-                      train["k1_dx_launches"], dx_rows, bound="tf32x3"),
-        _kernel_entry("folded_conv3_dw", "train",
-                      "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3_dw.cu",
-                      "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:179 (_dwf)",
-                      train["k1_dw_launches"], dw_rows, bound="tf32x3"),
+                      train["launches"]["k1"], k1_train_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dx", "train", k1_src, dx_replaces,
+                      train["launches"]["k1_dx"], dx_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dw", "train", dw_src, dw_replaces,
+                      train["launches"]["k1_dw"], dw_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_isles", "isles_train", k1_src, K1_REPLACES,
+                      isles["launches"]["k1"], k1_isles_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dx_isles", "isles_train", k1_src, dx_replaces,
+                      isles["launches"]["k1_dx"], dx_isles_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dw_isles", "isles_train", dw_src, dw_replaces,
+                      isles["launches"]["k1_dw"], dw_isles_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_isles_eval", "isles_eval", k1_src, K1_REPLACES,
+                      isles_eval["k1_launches"], k1_isles_eval_rows, bound="tf32x3"),
     ]
+    for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
+                           ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):
+        kernels.append(dict(name=name, path="isles_train", route="cuda", source=K2_SOURCE,
+                            replaces=K2_REPLACES, launches=isles["launches"][key],
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["tf32x3_bound_ms"],
+                            bound_by=row["tf32x3_bound_by"], bound_kind="tf32x3",
+                            float32_bound_ms=row["bound_ms"], library_ms=None,
+                            shapes=[row]))
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

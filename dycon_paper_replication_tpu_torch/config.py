@@ -14,12 +14,15 @@ CUDA, where the fold-2 conv is the hand-written kernel K1, and "NDHWC"
 elsewhere. The compute dtype on the card is float32.
 
 `build_parser` / `config_from_args` take the JAX package's flag names for
-what the port's trainer implements, plus `--device`; the flags of features
-not ported (VNet, ASPP, bf16, multi-device and DDP, chunked FeCL, the TPU
-host-loop options --fetch_ahead, --step_diagnostics, --host_rss_exit_gb,
---remat, --wire_dtype) and the GPU-selection flags --gpu_id/--gpu_ids (the
-device is --device) are refused by argparse rather than accepted and
-ignored.
+what the port's trainer implements, plus `--device`, for the datasets the
+port trains ("pancreas", "isles22"); the flags of features not ported
+(VNet, ASPP, bf16, multi-device and DDP, the TPU host-loop options
+--fetch_ahead, --step_diagnostics, --host_rss_exit_gb, --remat,
+--wire_dtype) and the GPU-selection flags --gpu_id/--gpu_ids (the device is
+--device) are refused by argparse rather than accepted and ignored.
+`--fecl_chunk N > 0` runs FeCL over row tiles of N, through `--fecl_impl`
+"fused" (the closed-form backward, ops/fecl_fused.py, K2 on the card) or
+"chunked" (ops/dycon.py:fecl_loss_chunked); 0 is the dense FeCL.
 """
 
 from __future__ import annotations
@@ -163,6 +166,13 @@ def make_config(dataset: str, **overrides: Any) -> TrainConfig:
     return TrainConfig(**kw)
 
 
+def _non_negative(text: str) -> int:
+    value = int(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
+    return value
+
+
 def build_parser(dataset: str) -> argparse.ArgumentParser:
     """The JAX package's training flags (names and defaults) that the port
     implements, plus --device."""
@@ -205,7 +215,9 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=d.resume,
                    help='"" fresh, "auto" = latest ckpt of this run dir, or a path')
     p.add_argument("--layout", type=str, default=d.layout, choices=["auto", "NDHWC", "folded"])
-    p.add_argument("--fecl_chunk", type=int, default=d.fecl_chunk, choices=[0])
+    p.add_argument("--fecl_chunk", type=_non_negative, default=d.fecl_chunk,
+                   help="FeCL row tile; 0 = dense")
+    p.add_argument("--fecl_impl", type=str, default=d.fecl_impl, choices=["fused", "chunked"])
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
     return p
 

@@ -1,12 +1,13 @@
-"""Volume datasets of {'image', 'label'} cases: the Pancreas-CT split.
+"""Volume datasets of {'image', 'label'} cases: the Pancreas-CT and the
+ISLES-2022 splits.
 
-Counterpart of `H5VolumeDataset` and `Pancreas` in
+Counterpart of `H5VolumeDataset`, `Pancreas` and `ISLESDataset` in
 dycon_paper_replication_tpu/data/datasets.py. A case is an `.h5` file (read
-with h5py, imported only then) or an `.npz` archive of the same two arrays
+with h5py, imported only then) or an `.npz` archive of the same arrays
 (numpy alone), chosen by the file's extension. With `crop_size`, the crop
 origin is drawn from the stored shape exactly as RandomCrop draws it, and an
 .h5 case reads only that window; an .npz case is read whole and then cut,
-which gives the same sample. BraTS and ISLES are not ported yet.
+which gives the same sample. BraTS is not ported yet.
 """
 
 from __future__ import annotations
@@ -90,4 +91,27 @@ class Pancreas(VolumeDataset):
         if num is not None:
             names = names[:num]
         paths = [os.path.join(base_dir, "Pancreas_data", n) for n in names]
+        super().__init__(paths, transform, crop_size)
+
+
+class ISLESDataset(VolumeDataset):
+    """ISLES-2022 DWI stroke volumes: <h5_dir>/{split}.list of case ids, each
+    case <h5_dir>/<id>.h5 or, where that is missing, <id>.npz, with the
+    arrays `image` and `mask`. Cases with neither file are left out and
+    listed in `missing` (as .h5 paths, the JAX dataset's)."""
+
+    label_key = "mask"
+
+    def __init__(self, h5_dir: str, split: str = "train", transform: Compose | None = None,
+                 crop_size=None):
+        list_file = os.path.join(h5_dir, f"{split}.list")
+        if not os.path.exists(list_file):
+            raise FileNotFoundError(f"List file {list_file} not found.")
+        paths, self.missing = [], []
+        for name in _read_list(list_file):
+            h5, npz = (os.path.join(h5_dir, name + ext) for ext in (".h5", ".npz"))
+            if os.path.exists(h5) or os.path.exists(npz):
+                paths.append(h5 if os.path.exists(h5) else npz)
+            else:
+                self.missing.append(h5)
         super().__init__(paths, transform, crop_size)

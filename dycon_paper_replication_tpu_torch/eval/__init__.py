@@ -1,9 +1,18 @@
 """Evaluation: the sliding-window engine and the per-dataset drivers."""
 
-from .evaluator import iter_h5_volumes, iter_volumes, test_all_case, var_all_case
+from .evaluator import (
+    WholeVolumeInference,
+    iter_h5_volumes,
+    iter_volumes,
+    test_all_case,
+    test_all_case_wholevolume,
+    var_all_case,
+    var_all_case_wholevolume,
+)
 from .sliding_window import SlidingWindowInference, compute_origins
 
 __all__ = [
     "SlidingWindowInference", "compute_origins", "iter_h5_volumes", "iter_volumes",
-    "test_all_case", "var_all_case",
+    "test_all_case", "var_all_case", "WholeVolumeInference", "test_all_case_wholevolume",
+    "var_all_case_wholevolume",
 ]

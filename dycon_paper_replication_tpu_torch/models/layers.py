@@ -93,6 +93,12 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype), new_mean, new_var
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """torch.relu. Every ReLU of the UNet3D calls it here, so that the
+    card-against-CPU step check (train/device_check.py) can replace it."""
+    return torch.relu(x)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """Inverted dropout (scale by 1/keep); the identity unless training with

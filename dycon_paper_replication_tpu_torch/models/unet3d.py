@@ -50,8 +50,8 @@ class UnetConv3(nn.Module):
         self.conv2 = layers.Conv3d(out_ch, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(layers.instance_norm(self.conv1(x)))
-        return torch.relu(layers.instance_norm(self.conv2(x)))
+        x = layers.relu(layers.instance_norm(self.conv1(x)))
+        return layers.relu(layers.instance_norm(self.conv2(x)))
 
 
 class ProjectionHead(nn.Module):
@@ -131,5 +131,5 @@ def projection_head(net: UNet3D, center: torch.Tensor) -> torch.Tensor:
     p = net.projection
     target = tuple(s * net.cfg.scale_factor for s in center.shape[1:4])
     proj = trilinear_resize(center, target, align_corners=True)
-    proj = torch.relu(p.bn1(p.conv1(proj)))
+    proj = layers.relu(p.bn1(p.conv1(proj)))
     return p.bn2(p.conv2(proj)).to(torch.float32)

@@ -36,9 +36,9 @@ def _folded_block(block, x: torch.Tensor, *, grid, n_valid: int) -> torch.Tensor
     co = block.conv1.w.shape[4]
     masks = phase1_lane_masks(tuple(g + 1 for g in grid), co, device=x.device)
     h = folded_conv3(x, block.conv1.w, block.conv1.b, to_phase=1)
-    h = torch.relu(instance_norm_folded(h, n_valid, masks=masks))
+    h = layers.relu(instance_norm_folded(h, n_valid, masks=masks))
     h = folded_conv3(h, block.conv2.w, block.conv2.b, to_phase=0)
-    return torch.relu(instance_norm_folded(h, n_valid))
+    return layers.relu(instance_norm_folded(h, n_valid))
 
 
 def unet3d_trunk_folded(net, xf: torch.Tensor, *,

@@ -14,12 +14,20 @@ defines training:
   * the teacher cross term uses raw cosine similarity and clamps 1 - sim at
     0, so a similarity that rounds above 1 spikes the term instead of making
     it NaN.
-The row-chunked FeCL (`fecl_loss_chunked`, ISLES) is not ported yet.
+`fecl_loss_chunked` is the same FeCL over row tiles (the `fecl_impl=
+"chunked"` path of the train step): the B x N x N matrices exist one tile
+at a time, and each tile's terms run under torch.utils.checkpoint, so the
+backward recomputes them instead of storing them. Its `cs > neg_thresh`
+test goes through the fused FeCL's `cross_side` hook when that is set
+(ops/fecl_fused.py; set only by train/device_check.py's kink sharing).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import fecl_fused
 
 _EPS_ENTROPY = 1e-6
 _EPS_LOG = 1e-18
@@ -95,6 +103,91 @@ def fecl_loss(feat: torch.Tensor, mask: torch.Tensor, teacher_feat: torch.Tensor
     cross_term = -torch.log(gap + _EPS_LOG) * cross_hard
     loss_cross = cross_term.sum() / (cross_hard.sum() + _EPS_LOG)
     return loss_student + lambda_cross * loss_cross
+
+
+def fecl_loss_chunked(feat: torch.Tensor, mask: torch.Tensor,
+                      teacher_feat: torch.Tensor | None = None,
+                      gambling_uncertainty: torch.Tensor | None = None, *,
+                      temperature: float = 0.6, gamma: float = 2.0, use_focal: bool = True,
+                      pos_thresh: float = 1.5, neg_thresh: float = 0.5,
+                      lambda_cross: float = 1.0, row_chunk: int = 512) -> torch.Tensor:
+    """`fecl_loss` over row tiles of `row_chunk` (JAX `fecl_loss_chunked`).
+
+    The column max is a first pass over the tiles, without gradient; then
+    each tile's student and cross terms are computed under
+    torch.utils.checkpoint and summed. When N is not a multiple of
+    `row_chunk` the row axis is padded with zero rows of sentinel class -1:
+    the pad is kept out of every positive and negative set, and the student
+    mean divides by the true N."""
+    b, n_true, _ = feat.shape
+    dtype = feat.dtype
+    mask = mask.to(dtype)
+    pad = -n_true % row_chunk
+    if pad:
+        feat = torch.nn.functional.pad(feat, (0, 0, 0, pad))
+        mask = torch.cat([mask, torch.full((b, pad), -1.0, dtype=dtype, device=feat.device)], 1)
+        if teacher_feat is not None:
+            teacher_feat = torch.nn.functional.pad(teacher_feat, (0, 0, 0, pad))
+        if gambling_uncertainty is not None:
+            gambling_uncertainty = torch.nn.functional.pad(gambling_uncertainty, (0, pad))
+    n = feat.shape[1]
+    ids = torch.arange(n, device=feat.device)
+    col_valid = (ids < n_true).to(dtype)
+
+    with torch.no_grad():
+        col_max = torch.full((b, n), -torch.inf, dtype=dtype, device=feat.device)
+        for k in range(0, n, row_chunk):
+            lt = torch.einsum("btd,bnd->btn", feat[:, k:k + row_chunk], feat) / temperature
+            lt = lt * (ids[k:k + row_chunk, None] != ids[None, :]).to(dtype)
+            col_max = torch.maximum(col_max, lt.amax(dim=1))
+
+    def tile_terms(f_t, feat_all, tfeat_all, g_t, k):
+        rows = ids[k:k + row_chunk]
+        m_t = mask[:, k:k + row_chunk]
+        same = (m_t[:, :, None] == mask[:, None, :]).to(dtype)
+        diff = (1.0 - same) * col_valid
+        off = (rows[:, None] != ids[None, :]).to(dtype)
+        lt = torch.einsum("btd,bnd->btn", f_t, feat_all) / temperature
+        e = torch.exp(lt * off - col_max[:, None, :])
+        neg_sum = (e * diff).sum(dim=-1, keepdim=True)
+        division = e / (e + neg_sum + _EPS_LOG)
+        loss_mat = -torch.log(division + _EPS_LOG) * same * off
+        pos_count = same.sum(dim=-1) - 1.0
+        if use_focal and g_t is None:
+            hard_pos = (same > 0) & (division < pos_thresh)
+            hard_neg = (diff > 0) & (division > neg_thresh)
+            focal = torch.where(hard_pos, (1.0 - division) ** gamma,
+                                torch.where(hard_neg, division ** gamma,
+                                            torch.ones_like(division)))
+            row_sum = (loss_mat * focal).sum(dim=-1)
+        else:
+            row_sum = loss_mat.sum(dim=-1)
+        zero = torch.zeros((), dtype=dtype, device=feat.device)
+        row_mean = torch.where(pos_count > 0, row_sum / pos_count.clamp_min(1.0), zero)
+        row_mean = row_mean * (rows < n_true).to(dtype)
+        if g_t is not None:
+            row_mean = row_mean * g_t
+        student = row_mean.sum()
+        if tfeat_all is None:
+            return student, zero, zero
+        cs = torch.einsum("btd,bnd->btn", f_t, tfeat_all)
+        above = cs > neg_thresh
+        if fecl_fused.cross_side is not None:
+            above = fecl_fused.cross_side(slice(k, k + row_chunk), cs, neg_thresh, above)
+        hard = ((diff > 0) & above & (rows < n_true)[None, :, None]).to(dtype)
+        gap = torch.maximum(1.0 - cs, zero)
+        return student, (-torch.log(gap + _EPS_LOG) * hard).sum(), hard.sum()
+
+    student = cross = count = 0.0
+    for k in range(0, n, row_chunk):
+        g_t = None if gambling_uncertainty is None else gambling_uncertainty[:, k:k + row_chunk]
+        s, c, h = checkpoint(tile_terms, feat[:, k:k + row_chunk], feat, teacher_feat, g_t, k,
+                             use_reentrant=False)
+        student, cross, count = student + s, cross + c, count + h
+    loss_student = student / (b * n_true)
+    if teacher_feat is None:
+        return loss_student
+    return loss_student + lambda_cross * cross / (count + _EPS_LOG)
 
 
 def gambling_softmax(logits: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from . import resize
 from .folded_conv_cuda import FoldedConv3Fn
 
 _SUBS = 8  # 2*2*2 sub-positions per folded block
@@ -153,7 +154,7 @@ def pool_consume_fold(x: torch.Tensor) -> torch.Tensor:
     """2^3 stride-2 max pool of a phase-0 folded tensor, UNFOLDED output:
     (B, G, G, G, 8C) -> (B, G, G, G, C), a max over the sub-positions."""
     b, g1, g2, g3, l = x.shape
-    return x.reshape(b, g1, g2, g3, l // _SUBS, _SUBS).amax(dim=-1)
+    return resize.block_max(x.reshape(b, g1, g2, g3, l // _SUBS, _SUBS), (5,))
 
 
 def pool_refold(x: torch.Tensor) -> torch.Tensor:

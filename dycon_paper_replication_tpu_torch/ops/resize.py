@@ -59,11 +59,17 @@ def upsample2x(x: torch.Tensor, spatial_axes: tuple[int, int, int] = (1, 2, 3)) 
     return x
 
 
+def block_max(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """The max over `dims`, which hold the 8 voxels of a 2x2x2 block. Every
+    max pool of the UNet3D takes it here, so that the card-against-CPU step
+    check (train/device_check.py) can replace it."""
+    return x.amax(dim=dims)
+
+
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x2x2 stride-2 max pool over the spatial axes of (B, D1, D2, D3, C)."""
     b, d1, d2, d3, c = x.shape
-    x = x.reshape(b, d1 // 2, 2, d2 // 2, 2, d3 // 2, 2, c)
-    return x.amax(dim=(2, 4, 6))
+    return block_max(x.reshape(b, d1 // 2, 2, d2 // 2, 2, d3 // 2, 2, c), (2, 4, 6))
 
 
 def avg_pool_nonoverlap(x: torch.Tensor, kernel: tuple[int, int, int]) -> torch.Tensor:

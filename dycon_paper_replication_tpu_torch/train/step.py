@@ -16,9 +16,11 @@ One `torch.Generator` on that device draws the step's randomness: the
 teacher noise clip(0.1 N(0, 1), +-0.2), then the teacher's dropout, then the
 student's. The noise can also be passed in, so a test can hand both
 packages the same numbers. The NaN/Inf check reads the loss on the host,
-one sync per step. Not ported: the light/full step pair and the diagnostic
-outputs (train-HD95 bits, monitor embeddings); `remat`; the row-chunked
-FeCL (ISLES).
+one sync per step. FeCL is dense at `fecl_chunk` 0; above it, over row
+tiles of `fecl_chunk` through `fecl_impl` "fused" (ops/fecl_fused.py: the
+closed-form backward, the kernel K2 on the card) or "chunked"
+(ops/dycon.py:fecl_loss_chunked). Not ported: the light/full step pair and
+the diagnostic outputs (train-HD95 bits, monitor embeddings); `remat`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
-from ..ops import dycon, losses
+from ..ops import dycon, fecl_fused, losses
 from ..ops.resize import avg_pool_nonoverlap
 from .state import TrainState, ema_update, sgd_update
 
@@ -74,8 +76,6 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
     """train_step(state, batch, generator, scalars, noise=None) -> the
     float32 vector of SCALAR_METRICS on the device; `state` is updated in
     place. `lr_schedule` maps the step count to the learning rate."""
-    if cfg.fecl_chunk:
-        raise NotImplementedError("the row-chunked FeCL (fecl_chunk > 0) is not ported yet")
     lbs = cfg.labeled_bs
 
     def loss_fn(student, image, label, t_logits, t_features, generator, scalars: StepScalars):
@@ -94,9 +94,18 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         mask = avg_pool_nonoverlap(label.to(torch.float32), kernel)
         mask = (mask > 0.5).to(torch.float32).reshape(label.shape[0], -1)
         teacher_emb = normalized_embeddings(t_features) if cfg.use_teacher_loss else None
-        f_loss = dycon.fecl_loss(stud_emb, mask, teacher_emb, temperature=cfg.temp,
-                                 gamma=cfg.gamma, use_focal=bool(cfg.use_focal),
-                                 pos_thresh=scalars.pos_thresh, neg_thresh=scalars.neg_thresh)
+        fecl_kwargs = dict(temperature=cfg.temp, gamma=cfg.gamma, use_focal=bool(cfg.use_focal),
+                           pos_thresh=scalars.pos_thresh, neg_thresh=scalars.neg_thresh)
+        if cfg.fecl_chunk > 0 and cfg.fecl_impl == "fused":
+            # the teacher embeddings come from a no-grad forward and the mask
+            # is binary, as the closed-form backward requires
+            f_loss = fecl_fused.fecl_loss_fused(stud_emb, mask, teacher_emb,
+                                                row_chunk=cfg.fecl_chunk, **fecl_kwargs)
+        elif cfg.fecl_chunk > 0:
+            f_loss = dycon.fecl_loss_chunked(stud_emb, mask, teacher_emb,
+                                             row_chunk=cfg.fecl_chunk, **fecl_kwargs)
+        else:
+            f_loss = dycon.fecl_loss(stud_emb, mask, teacher_emb, **fecl_kwargs)
 
         u_loss = dycon.uncl_loss(s_logits, t_logits, scalars.beta)
         # The reference feeds already-softmaxed probabilities into the

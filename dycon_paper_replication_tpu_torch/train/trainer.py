@@ -1,23 +1,26 @@
-"""The DyCON trainer, Pancreas path.
+"""The DyCON trainer, Pancreas and ISLES-2022 paths.
 
 Counterpart of dycon_paper_replication_tpu/train/trainer.py for the part
-that canonical Pancreas training runs:
-  * the data: Pancreas train split, random crop + rot/flip, the two-stream
-    sampler (labelnum labeled cases first) and the prefetching loader;
+that canonical Pancreas and ISLES training run:
+  * the data: the train split (Pancreas, or ISLES with labelnum counted in
+    patients, ISLES_PATIENTS_TO_SLICES), random crop + rot/flip, the
+    two-stream sampler (the labeled cases first) and the prefetching loader;
   * the host schedules: per epoch beta and the FeCL focal thresholds, per
     iteration the consistency weight;
   * the step (train/step.py) on the device, one sync per step for its
     scalars;
-  * validation every `val_every` iterations, through the sliding window at
-    val_stride_xy / val_stride_z over test1.list, with the student in eval
-    mode and no gradient; a better Dice saves iter_<N>_dice_<D> and the
-    best model, each a full train state;
+  * validation every `val_every` iterations, with the student in eval mode
+    and no gradient: Pancreas through the sliding window at val_stride_xy /
+    val_stride_z over test1.list, ISLES by one whole-volume forward per
+    val.list case, argmaxing the SDF head as the reference does; a better
+    Dice saves iter_<N>_dice_<D> and the best model, each a full train
+    state;
   * a full-state save every `save_every` iterations, `resume` ("", "auto"
     or a path) and `time_budget_s` (a clean, resumable stop).
 Not ported (ROADMAP Queue A): the deferred scalar fetch (`fetch_ahead`),
 the light/full step pair, train-HD95, the similarity monitor, the host-RSS
-watchdog, StepTimer, the code snapshot, BraTS/ISLES data and the
-multi-device rules.
+watchdog, StepTimer, the code snapshot, BraTS data and the multi-device
+rules.
 """
 
 from __future__ import annotations
@@ -31,8 +34,22 @@ import torch
 
 from .. import weights
 from ..config import TrainConfig, resolve_device
-from ..data import BatchLoader, Compose, Pancreas, RandomRotFlip, ToArray, TwoStreamBatchSampler
-from ..eval import SlidingWindowInference, iter_volumes, var_all_case
+from ..data import (
+    BatchLoader,
+    Compose,
+    ISLESDataset,
+    Pancreas,
+    RandomRotFlip,
+    ToArray,
+    TwoStreamBatchSampler,
+)
+from ..eval import (
+    SlidingWindowInference,
+    WholeVolumeInference,
+    iter_volumes,
+    var_all_case,
+    var_all_case_wholevolume,
+)
 from ..models import UNet3D, UNet3DConfig
 from ..ops import ramps
 from ..utils import checkpoint
@@ -40,11 +57,19 @@ from ..utils.logging import ExperimentLogger
 from .state import create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
 
+# ISLES-2022 labelnum (patients) -> number of labeled training volumes
+# (the reference's train_DyCON_ISLES22.py)
+ISLES_PATIENTS_TO_SLICES = {
+    1: 36, 2: 38, 3: 27, 4: 53, 5: 60, 6: 25, 7: 25, 8: 38, 9: 38, 10: 45,
+    11: 27, 12: 29, 13: 32, 14: 29, 15: 44, 16: 38, 17: 29, 18: 23, 19: 48,
+    20: 42, 21: 31, 22: 48, 23: 42, 24: 23, 25: 29,
+}
+
 
 class Trainer:
     def __init__(self, cfg: TrainConfig):
-        if cfg.dataset != "pancreas":
-            raise ValueError(f"dataset {cfg.dataset!r} is not ported yet (pancreas only)")
+        if cfg.dataset not in ("pancreas", "isles22"):
+            raise ValueError(f"dataset {cfg.dataset!r} is not ported yet (pancreas, isles22)")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.snapshot_path = cfg.snapshot_path()
@@ -78,16 +103,29 @@ class Trainer:
             schedule = lambda step: cfg.base_lr  # noqa: E731
         self.train_step = build_train_step(cfg, schedule)
         self._build_data()
-        self.sw = SlidingWindowInference(self.state.student, cfg.patch_size, cfg.val_stride_xy,
-                                         cfg.val_stride_z)
+        if cfg.dataset == "isles22":
+            self.whole_volume = WholeVolumeInference(self.state.student, cfg.patch_size,
+                                                     head="sdf")
+            self.sw = None
+        else:
+            self.whole_volume = None
+            self.sw = SlidingWindowInference(self.state.student, cfg.patch_size,
+                                             cfg.val_stride_xy, cfg.val_stride_z)
 
     def _build_data(self) -> None:
         cfg = self.cfg
-        ds = Pancreas(cfg.root_dir, split="train", transform=Compose([RandomRotFlip(), ToArray()]),
-                      crop_size=cfg.patch_size)
-        if cfg.labelnum >= len(ds):
-            raise ValueError(f"labelnum {cfg.labelnum} >= dataset size {len(ds)}")
-        sampler = TwoStreamBatchSampler(range(cfg.labelnum), range(cfg.labelnum, len(ds)),
+        transform = Compose([RandomRotFlip(), ToArray()])
+        if cfg.dataset == "isles22":
+            ds = ISLESDataset(cfg.root_dir, split="train", transform=transform,
+                              crop_size=cfg.patch_size)
+            labeled = ISLES_PATIENTS_TO_SLICES.get(cfg.labelnum, cfg.labelnum)
+        else:
+            ds = Pancreas(cfg.root_dir, split="train", transform=transform,
+                          crop_size=cfg.patch_size)
+            labeled = cfg.labelnum
+        if labeled >= len(ds):
+            raise ValueError(f"labelnum {labeled} >= dataset size {len(ds)}")
+        sampler = TwoStreamBatchSampler(range(labeled), range(labeled, len(ds)),
                                         cfg.batch_size, cfg.batch_size - cfg.labeled_bs,
                                         seed=cfg.seed)
         self.loader = BatchLoader(ds, sampler, seed=cfg.seed, prefetch=cfg.num_prefetch)
@@ -107,16 +145,23 @@ class Trainer:
         cfg = self.cfg
         return cfg.consistency * ramps.sigmoid_rampup(iter_num // 150, cfg.consistency_rampup)
 
-    def validate(self) -> float:
-        """Mean Dice of the student over test1.list (the reference validates
-        on it and fails when it is missing)."""
-        with open(os.path.join(self.cfg.root_dir, "test1.list")) as f:
+    def _val_volumes(self):
+        cfg = self.cfg
+        if cfg.dataset == "isles22":
+            return iter_volumes(ISLESDataset(cfg.root_dir, split="val").paths, label_key="mask")
+        # Pancreas: test1.list, as the reference, which fails when it is missing
+        with open(os.path.join(cfg.root_dir, "test1.list")) as f:
             names = [line.strip() for line in f if line.strip()]
-        paths = [os.path.join(self.cfg.root_dir, "Pancreas_data", n) for n in names]
+        return iter_volumes([os.path.join(cfg.root_dir, "Pancreas_data", n) for n in names])
+
+    def validate(self) -> float:
+        """Mean Dice of the student over the validation volumes."""
         student = self.state.student.eval()
         try:
             with torch.no_grad():
-                return var_all_case(self.sw, iter_volumes(paths))
+                if self.whole_volume is not None:
+                    return var_all_case_wholevolume(self.whole_volume, self._val_volumes())
+                return var_all_case(self.sw, self._val_volumes())
         finally:
             student.train()
 

@@ -5,10 +5,13 @@ from __future__ import annotations
 
 
 def category(name: str) -> str:
-    """k1 (K1 forward and dx), k1_dw (K1-dW and its split-K sum), library
-    (cuDNN and cuBLAS convs and matmuls) or other (elementwise, reductions,
-    copies). K1-dW is tested first: its name contains K1's."""
+    """k1 (K1 forward and dx), k1_dw (K1-dW and its split-K sum), k2 (the
+    fused FeCL's kernels), library (cuDNN and cuBLAS convs and matmuls) or
+    other (elementwise, reductions, copies). K1-dW is tested first: its name
+    contains K1's."""
     n = name.lower()
+    if "fecl_" in n:
+        return "k2"
     if "folded_conv3_dw" in n or "sum_splits" in n:
         return "k1_dw"
     if "folded_conv3" in n:
@@ -21,7 +24,7 @@ def category(name: str) -> str:
 def device_ms_by_category(prof, reps: int):
     """({category: device ms per rep}, [(ms per rep, launches per rep, name)])
     over the kernel events of a finished profile of `reps` repetitions."""
-    by_cat = {"k1": 0.0, "k1_dw": 0.0, "library": 0.0, "other": 0.0}
+    by_cat = {"k1": 0.0, "k1_dw": 0.0, "k2": 0.0, "library": 0.0, "other": 0.0}
     kernels = []
     for ev in prof.key_averages():
         # kernel events only: operator events carry their kernels' time as children

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in one DyCON train step of the port on the GPU, at the
-Pancreas defaults (full-width UNet3D, folded layout, patch 112x112x96,
-batch 8 of which 4 labeled, dense FeCL with N = 2352), random weights and a
-synthetic batch from a seed.
+"""Where the time goes in one DyCON train step of the port on the GPU, at a
+dataset's defaults: Pancreas (full-width UNet3D, folded layout, patch
+112x112x96, batch 8 of which 4 labeled, dense FeCL with N = 2352) or ISLES
+(patch 96x96x64, batch 8 of which 4 labeled, teacher in eval mode, the
+fused FeCL over N = 9216 through K2), random weights and a synthetic batch
+from a seed.
 
-    python3 scripts/profile_torch_train.py [--reps 3] [--layout folded|NDHWC]
+    python3 scripts/profile_torch_train.py [--config pancreas|isles22] [--reps 3]
+        [--layout folded|NDHWC]
 
 `--layout` picks the model layout (default: the config's, "folded" on
 CUDA); NDHWC runs every level through cuDNN and never reaches K1.
@@ -12,8 +15,8 @@ CUDA); NDHWC runs every level through cuDNN and never reaches K1.
 It prints the wall ms per step (host clock around steps that end in a
 device sync, median of --reps after 2 warm-up steps), the peak device
 memory of a step, then the device time per step from torch.profiler grouped
-as K1 (forward and dx), K1-dW, library convs and matmuls (cuDNN, cuBLAS)
-and everything else (elementwise, reductions, copies), the share of each,
+as K1 (forward and dx), K1-dW, K2 (the fused FeCL), library convs and
+matmuls (cuDNN, cuBLAS) and everything else (elementwise, reductions, copies), the share of each,
 the device's idle share of the wall time, and the largest kernels. Last
 line: one JSON object with the same numbers.
 """
@@ -38,6 +41,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layout", choices=("folded", "NDHWC"), default=None)
+    ap.add_argument("--config", choices=("pancreas", "isles22"), default="pancreas")
     args = ap.parse_args()
 
     import numpy as np
@@ -53,8 +57,9 @@ def main() -> int:
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = make_config("pancreas", device="cuda")
-    net_cfg = UNet3DConfig(layout=args.layout or cfg.resolved_layout(device))
+    cfg = make_config(args.config, device="cuda")
+    net_cfg = UNet3DConfig(layout=args.layout or cfg.resolved_layout(device),
+                           scale_factor=cfg.feature_scaler)
     params, state = weights.init_jax_tree(net_cfg, seed=args.seed)
     student = UNet3D(net_cfg).to(device)
     student.load_state_dict(weights.jax_tree_to_state_dict(params, state))
@@ -92,14 +97,15 @@ def main() -> int:
     by_cat, kernels = device_ms_by_category(prof, args.reps)
     busy = sum(by_cat.values())
     idle = max(0.0, 1 - busy / wall_ms)
-    print(f"train step ({net_cfg.layout}): wall {wall_ms:.3f} ms (all "
+    print(f"train step ({args.config}, {net_cfg.layout}): wall {wall_ms:.3f} ms (all "
           f"{[round(w, 3) for w in walls]}), device busy {busy:.3f} ms, idle share {idle:.3f}, "
           f"peak memory {peak_gib:.3f} GiB")
     for cat, ms in by_cat.items():
         print(f"   {cat:8s} {ms:9.3f} ms  {ms / busy if busy else 0:.3f}")
     for ms, cnt, key in kernels[:15]:
         print(f"   {ms:9.3f} ms  x{cnt:<4d} {key}")
-    print(json.dumps(dict(device=torch.cuda.get_device_name(0), layout=net_cfg.layout,
+    print(json.dumps(dict(device=torch.cuda.get_device_name(0), config=args.config,
+                          layout=net_cfg.layout,
                           wall_ms=wall_ms, walls_ms=walls,
                           device_busy_ms=busy, idle_share=idle, peak_gib=peak_gib,
                           **{f"{k}_ms": v for k, v in by_cat.items()})))

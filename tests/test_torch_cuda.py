@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 and K1-dW against their plain
 versions, FoldedConv3Fn's gradients against autograd of the plain conv, the
 folded UNet3D on CUDA against the same module on the CPU, its gradients
-against autograd of the plain folded path, and one train step on CUDA
-against the same step on the CPU. Marked `cuda`; each test skips when no
+against autograd of the plain folded path, one train step on CUDA against
+the same step on the CPU (the Pancreas and the ISLES case), and K2, the
+fused FeCL, against its plain twin. Marked `cuda`; each test skips when no
 GPU is present. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -169,7 +170,97 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     16 + 7 K1 and 8 K1-dW launches."""
     counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
     before = [c.launches for c in counters]
-    diffs, scalars, _ = check_step(cuda)
+    diffs, scalars, _, _ = check_step(cuda)
     assert [c.launches - n for c, n in zip(counters, before)] == [16, 7, 8]
     assert diffs == []
     assert np.isfinite(scalars).all() and scalars[SCALAR_METRICS.index("skipped")] == 0
+
+
+def test_isles_train_step_on_cuda_matches_cpu(cuda):
+    """The ISLES case of the same check: the fused FeCL through K2 (one
+    forward and one backward call) on the card against its twin on the CPU,
+    with the K1 launches of the Pancreas case."""
+    from dycon_paper_replication_tpu_torch.ops.fecl_fused import fecl_bwd, fecl_fwd
+
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw, fecl_fwd, fecl_bwd)
+    before = [c.launches for c in counters]
+    diffs, scalars, _, sides = check_step(cuda, config="isles22")
+    assert [c.launches - n for c, n in zip(counters, before)] == [16, 7, 8, 1, 1]
+    assert diffs == [], (diffs, sides)
+    assert np.isfinite(scalars).all() and scalars[SCALAR_METRICS.index("skipped")] == 0
+
+
+def _fecl_inputs(device, b, n, d, seed):
+    """L2-normalised student and teacher rows and a binary mask, from numpy."""
+    rng = np.random.default_rng(seed)
+    feat = rng.standard_normal((b, n, d)).astype(np.float32)
+    tfeat = feat + 0.5 * rng.standard_normal((b, n, d)).astype(np.float32)
+    feat /= np.linalg.norm(feat, axis=-1, keepdims=True)
+    tfeat /= np.linalg.norm(tfeat, axis=-1, keepdims=True)
+    mask = (rng.random((b, n)) < 0.3).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (feat, mask, tfeat))
+
+
+@pytest.mark.parametrize("n,d,teacher,focal", [(300, 256, True, True), (256, 256, True, True),
+                                               (200, 256, False, False)])
+def test_k2_matches_twin(cuda, n, d, teacher, focal):
+    """K2 (forward and backward) against the plain twin on the card, TF32
+    off: the loss within 1e-5 relative and the residuals within 1e-5 x
+    their max, dF within 1e-4 x max|dF twin|; one K2 call each way, and a
+    rerun bit-identical."""
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
+
+    feat, mask, tfeat = _fecl_inputs(cuda, 2, n, d, seed=n)
+    tfeat = tfeat if teacher else None
+    opts = ff.FeclOptions(0.6, 2.0, focal, 1.3, 0.3, 1.0, 128)
+    fwd, bwd = ff.FeclForward(), ff.FeclBackward()
+    got = fwd(feat, mask, tfeat, opts)
+    again = fwd(feat, mask, tfeat, opts)
+    want = [t.contiguous() for t in ff._twin_forward(feat, mask, tfeat, opts)]
+    for name, g, a, w in zip(("col_max", "S", "row", "unf", "rho", "csum", "ccnt"),
+                             got, again, want):
+        assert torch.equal(g, a), name
+        assert (g - w).abs().max().item() <= 1e-5 * max(w.abs().max().item(), 1.0), name
+    col_max, s_all, _, _, rho = want[:5]
+    a_all = torch.rand(feat.shape[:2], device=cuda) * 1e-3
+    dgot = bwd(feat, mask, tfeat, col_max, s_all, rho, a_all, 0.25, opts)
+    dagain = bwd(feat, mask, tfeat, col_max, s_all, rho, a_all, 0.25, opts)
+    dwant = ff._twin_backward(feat, mask, tfeat, col_max, s_all, rho, a_all, 0.25, opts)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (2, 2)
+    assert torch.equal(dgot, dagain)
+    assert (dgot - dwant).abs().max().item() <= 1e-4 * dwant.abs().max().item()
+
+
+def test_k2_loss_and_grad_match_twin_and_nan(cuda):
+    """fecl_loss_fused on the card against the same call on the CPU (the
+    twin); a NaN row makes the loss NaN."""
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
+
+    feat, mask, tfeat = _fecl_inputs(cuda, 2, 333, 256, seed=5)
+    vals = []
+    for device in (cuda, "cpu"):
+        f = feat.to(device).clone().requires_grad_()
+        loss = ff.fecl_loss_fused(f, mask.to(device), tfeat.to(device), pos_thresh=1.3,
+                                  neg_thresh=0.3, row_chunk=128)
+        loss.backward()
+        vals.append((loss.item(), f.grad.cpu()))
+    (lc, gc), (lp, gp) = vals
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    assert (gc - gp).abs().max().item() <= 1e-4 * gp.abs().max().item()
+    bad = feat.clone()
+    bad[1, 17, 3] = float("nan")
+    assert torch.isnan(ff.fecl_loss_fused(bad, mask, tfeat, pos_thresh=1.3, neg_thresh=0.3))
+
+
+def test_k2_rejects_bad_operands(cuda):
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
+
+    feat, mask, tfeat = _fecl_inputs(cuda, 1, 64, 256, seed=1)
+    opts = ff.FeclOptions(0.6, 2.0, True, 1.3, 0.3, 1.0, 64)
+    fwd = ff.FeclForward()
+    with pytest.raises(ValueError):
+        fwd(feat[..., :64].contiguous(), mask, None, opts)  # D not K2's width
+    with pytest.raises(TypeError):
+        fwd(feat.double(), mask.double(), None, opts)
+    assert fwd.launches == 0

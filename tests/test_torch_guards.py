@@ -119,3 +119,32 @@ def test_resolved_layout_keys_on_the_device():
     assert cfg.resolved_layout("cuda") == "folded"
     assert cfg.resolved_layout("cpu") == "NDHWC"
     assert config.make_config("pancreas", layout="NDHWC").resolved_layout("cuda") == "NDHWC"
+
+
+def test_k2_wrappers_and_fused_fecl_raise_without_cuda(monkeypatch):
+    """The fused FeCL on a tensor that is not on the CPU reaches K2's
+    forward launch, and (the forward stubbed) K2's backward launch: both
+    raise, and neither falls back to the plain twin."""
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feat = torch.zeros(1, 64, 64, device="meta", requires_grad=True)
+    mask = torch.zeros(1, 64, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fecl_fused.fecl_loss_fused(feat, mask)
+    assert fecl_fused.fecl_fwd.launches == 0
+    monkeypatch.setattr(fecl_fused, "fecl_fwd",
+                        lambda f, *a: tuple(torch.zeros(1, 64, device="meta") for _ in range(7)))
+    loss = fecl_fused.fecl_loss_fused(feat, mask)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loss.backward()
+    assert fecl_fused.fecl_bwd.launches == 0
+
+
+def test_isles_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.config_from_args("isles22", ["--snapshot_root", str(tmp_path / "runs")])
+    assert (cfg.device, cfg.fecl_chunk, cfg.fecl_impl) == ("cuda", 512, "fused")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+    assert not (tmp_path / "runs").exists()
