@@ -10,8 +10,9 @@ Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
   2. build K1 (ops/csrc/folded_conv3.cu), K1-dW (ops/csrc/folded_conv3_dw.cu)
-     and K2 (ops/csrc/fecl_fused.cu), one nvcc each, in parallel; the SASS
-     (cuobjdump) of K1 and K1-dW must hold tensor-core MMA (HMMA)
+     and K2 (ops/csrc/fecl_fused.cu), one nvcc each, in parallel, printing
+     ptxas's registers, shared memory and spills per kernel instance; the
+     SASS (cuobjdump) of K1, K1-dW and K2 must hold tensor-core MMA (HMMA)
      instructions in every instance of their kernels;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
      eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
@@ -51,9 +52,11 @@ Phases, each timed on its own line:
   9. fecl: K2 forward and backward at the ISLES defaults (B 8, N 9216,
      D 256, teacher on) against its plain twin in float32 and in float64
      (phase_fecl: the gates), a rerun bit-identical, a NaN row NaN in the
-     loss; times beside the 3xTF32 bound of the JAX algorithm's products
-     (its `bound_ms`, as for K1 and K1-dW) and the float32 one (no single
-     PyTorch call computes it: library_ms null);
+     loss, the rows whose cross-pair count K2 and the float32 einsum
+     disagree on; times and TFLOP/s on K2's own products (8, as the JAX
+     algorithm's, 4 each way) beside the 3xTF32 bound of the JAX
+     algorithm's (its `bound_ms`, as for K1 and K1-dW) and the float32 one
+     (no single PyTorch call computes it: library_ms null);
  10. k1_isles: K1 forward, dx and K1-dW at the 8 ISLES training shapes
      (patch 96x96x64, B = TRAIN_BATCH: non-cubic fold grids), the gates of
      4, 6 and 5; K1 at the 8 shapes of one ISLES whole-volume forward
@@ -522,10 +525,14 @@ def phase_fecl(torch, device, gen, peaks):
     twin takes K2's side (cs > neg_thresh, from float32 cs of the same
     inputs) at pairs within 1e-5 of the threshold, as the step check does
     with its margin; a rerun bit-identical; a NaN row makes the loss NaN.
-    Times beside two bounds from the JAX algorithm's count of B x N x N x D
-    products (3 forward, 5 backward): three TF32 passes on the tensor cores
-    (the float32-accurate rate K1 and K1-dW are held to, the kernels line's
-    bound_ms) and float32 on the CUDA cores (K2's arithmetic today)."""
+    K2's own cs is not an output: the rows whose hard-pair count (c_cnt)
+    differs from the float32 twin's, whose cs is an einsum, and the sum of
+    those differences (a lower bound on the pairs whose side differs) are
+    printed. Times beside two bounds from the JAX algorithm's count of
+    B x N x N x D products (3 forward, 5 backward): three TF32 passes on the
+    tensor cores (the float32-accurate rate K1, K1-dW and K2 run at, the
+    kernels line's bound_ms) and float32 on the CUDA cores; TFLOP/s on the
+    JAX algorithm's products and on K2's own (4 forward, 4 backward)."""
     from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
 
     feat, mask, tfeat = _isles_fecl_inputs(torch, device, gen)
@@ -572,6 +579,7 @@ def phase_fecl(torch, device, gen, peaks):
         loss_64, grad_64 = loss_and_grad(f64, m64, t64)
     torch.cuda.synchronize()
     cnt = float(res[6].sum())
+    cnt_diff = (res[6] - res_p[6]).abs()
     err_loss = abs(float(loss) - float(loss_64))
     err_loss_plain = abs(float(loss_p) - float(loss_64))
     err_grad = (grad - grad_p).abs().max().item()
@@ -584,6 +592,8 @@ def phase_fecl(torch, device, gen, peaks):
           f"(|K2 - f64| {err_loss}, |plain - f64| {err_loss_plain}); hard pairs {cnt:.0f}, "
           f"within 1e-5 of the threshold {sum(v[0] for v in near.values())}, on K2's side "
           f"and not their own {sum(v[1] for v in near.values())}")
+    print(f"fecl: rows whose hard-pair count differs from the float32 einsum's "
+          f"{int((cnt_diff > 0).sum())}, pairs at least {int(cnt_diff.sum())}")
     print("fecl: dF max |K2 - plain|", err_grad, "max |dF plain|", scale_grad,
           "max |K2 - f64|", (grad.double() - grad_64).abs().max().item(),
           "max |plain - f64|", (grad_p.double() - grad_64).abs().max().item())
@@ -610,13 +620,14 @@ def phase_fecl(torch, device, gen, peaks):
                                                            a_all, g_cross, o), reps=2)
     product = 2 * b * n * n * d
     rows = {}
-    for name, ms, plain_ms, products, nbytes, err in (
-            ("fwd", ms_fwd, plain_fwd, 3, 4 * (2 * b * n * d + 8 * b * n), err_loss),
-            ("bwd", ms_bwd, plain_bwd, 5, 4 * (3 * b * n * d + 5 * b * n), err_grad)):
+    for name, ms, plain_ms, products, own, nbytes, err in (
+            ("fwd", ms_fwd, plain_fwd, 3, 4, 4 * (2 * b * n * d + 8 * b * n), err_loss),
+            ("bwd", ms_bwd, plain_bwd, 5, 4, 4 * (3 * b * n * d + 5 * b * n), err_grad)):
         bound = _bound(products * product, nbytes, peaks)
         rows[name] = dict(shape=[b, n, d], products=products, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=None,
-                          tflops=products * product / ms / 1e9,
+                          tflops=products * product / ms / 1e9, own_products=own,
+                          own_tflops=own * product / ms / 1e9,
                           float32_share=bound["bound_ms"] / ms,
                           tf32x3_share=bound["tf32x3_bound_ms"] / ms, **bound)
         print("fecl", name, json.dumps(rows[name]), flush=True)
@@ -934,7 +945,8 @@ def main() -> int:
                 print(f"ptxas {src.name}:", line.strip())
     print(f"build_s {time.perf_counter() - t0:.3f}")
     for src, kernel, label in ((SOURCE, "folded_conv3_kernel", "K1"),
-                               (DW_SOURCE, "folded_conv3_dw_kernel", "K1-dW")):
+                               (DW_SOURCE, "folded_conv3_dw_kernel", "K1-dW"),
+                               (fecl_fused.SOURCE, "fecl_kernel", "K2")):
         for fn, count in check_sass(_build.library_path(src), _build.nvcc(), kernel,
                                     label).items():
             print(f"sass {label} {fn}: {count} HMMA/HGMMA")

@@ -1,9 +1,9 @@
 // The tensor-core helpers of the port's 3xTF32 kernels, K1
-// (folded_conv3.cu) and K1-dW (folded_conv3_dw.cu): 16-byte cp.async copies
-// into shared memory (with the zero-fill form), the hi/lo TF32 splits of a
-// float32 operand, and the m16n8k8 TF32 mma.sync with float32 sums. The
-// build hashes this header with each source (ops/_build.py), so an edit
-// here rebuilds both.
+// (folded_conv3.cu), K1-dW (folded_conv3_dw.cu) and K2 (fecl_fused.cu):
+// 16-byte cp.async copies into shared memory (with the zero-fill form), the
+// hi/lo TF32 splits of a float32 operand, fragment loads by ldmatrix, and
+// the m16n8k8 TF32 mma.sync with float32 sums. The build hashes this header
+// with each source (ops/_build.py), so an edit here rebuilds all three.
 
 #pragma once
 
@@ -46,6 +46,19 @@ __device__ __forceinline__ void split_tf32_rn(float v, uint32_t& hi, uint32_t& l
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   const uint32_t r = __float_as_uint(v - __uint_as_float(hi));
   lo = ((r & 0x7f800000u) == 0x7f800000u ? r : r + 0x1000u) & 0xffffe000u;
+}
+
+// Four 8x4 blocks of 32-bit values from shared memory, one register each
+// (ldmatrix's four 8x8 b16 matrices, read as pairs): lanes 8 i .. 8 i + 7
+// give the 16-byte aligned addresses of block i's rows 0 .. 7, and lane
+// (g, t) = (lane / 4, lane % 4) receives element (g, t) of block i in r[i].
+// With the blocks a 16x8 tile's quarters (rows 0-7 and 8-15 x columns 0-3,
+// then 4-7) that is the m16n8k8 TF32 A fragment, with two 8x8 row-major
+// tiles' halves the B fragments of two n8 pieces.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // c += a * b for one 16x8x8 TF32 tile, float32 accumulation.

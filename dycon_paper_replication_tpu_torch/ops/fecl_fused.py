@@ -37,9 +37,13 @@ Two implementations of the passes, picked by the device of `feat`:
     `n_valid`), exactly as the JAX function pads;
   * a CUDA tensor runs K2 (csrc/fecl_fused.cu, nvcc + ctypes, see
     `_build.py`), which works at the true N and ignores `row_chunk`: three
-    launches forward (column max, S, the row terms), two backward (the
-    rows' and the columns' halves of dF). It raises where it cannot run;
-    nothing on the card calls the twin.
+    launches forward (column max, S, the row terms), one backward (both
+    halves of dF: dL_ij and dL_ji come from one dot product), every
+    B x N x N x D product on the tensor cores in three TF32 passes. Its
+    column max is L's row max (L is symmetric, its 3xTF32 products are
+    not bit for bit): the twin's column max within float32 rounding, and
+    saved for the backward as the twin's is. It raises where it cannot
+    run; nothing on the card calls the twin.
 `fecl_fwd.launches` and `fecl_bwd.launches` count K2's calls, one per
 forward and one per backward, whatever number of kernels each launches.
 
@@ -280,8 +284,7 @@ class FeclForward:
 
 class FeclBackward:
     """K2's backward wrapper: dF from the forward's residuals; launches its
-    two kernels (the rows' half, then the columns' half added in) on the
-    current stream and counts one call."""
+    kernel on the current stream and counts one call."""
 
     def __init__(self):
         self.launches = 0

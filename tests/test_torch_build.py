@@ -1,8 +1,9 @@
 """The port's kernel build (dycon_paper_replication_tpu_torch/ops/_build.py)
 names each library by a hash of what compiles into it: the source, the
-headers beside it and the flags. K1 and K1-dW share `tf32_mma.cuh`, so an
-edit to that header must give both a new library path, or a stale library
-would load. No nvcc is needed: the path is computed, nothing is built."""
+headers beside it and the flags. K1, K1-dW and K2 share `tf32_mma.cuh`, so
+an edit to that header must give each a new library path, or a stale
+library would load. No nvcc is needed: the path is computed, nothing is
+built."""
 
 import shutil
 
@@ -10,7 +11,7 @@ import pytest
 
 from dycon_paper_replication_tpu_torch.ops import _build
 
-SOURCES = ("folded_conv3.cu", "folded_conv3_dw.cu")
+SOURCES = ("folded_conv3.cu", "folded_conv3_dw.cu", "fecl_fused.cu")
 
 
 @pytest.fixture

@@ -202,12 +202,14 @@ def _fecl_inputs(device, b, n, d, seed):
 
 
 @pytest.mark.parametrize("n,d,teacher,focal", [(300, 256, True, True), (256, 256, True, True),
-                                               (200, 256, False, False)])
+                                               (200, 256, False, False), (1000, 256, True, True),
+                                               (24, 256, True, False)])
 def test_k2_matches_twin(cuda, n, d, teacher, focal):
     """K2 (forward and backward) against the plain twin on the card, TF32
     off: the loss within 1e-5 relative and the residuals within 1e-5 x
     their max, dF within 1e-4 x max|dF twin|; one K2 call each way, and a
-    rerun bit-identical."""
+    rerun bit-identical. N 1000 is no multiple of K2's tiles (64 owned rows,
+    128, 64 or 32 streamed rows), N 24 smaller than any of them."""
     from dycon_paper_replication_tpu_torch.ops import fecl_fused as ff
 
     feat, mask, tfeat = _fecl_inputs(cuda, 2, n, d, seed=n)
