@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the checkout and drives the port's three
-paths, Pancreas sliding-window evaluation, Pancreas DyCON training and
-ISLES-2022 training with whole-volume evaluation, each through its CLI.
+Builds the port's CUDA kernels from the checkout and drives the port's
+paths, Pancreas sliding-window evaluation, Pancreas DyCON training,
+ISLES-2022 training with whole-volume evaluation and BraTS-2019 training
+with sliding-window evaluation, each through its CLI.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -91,10 +92,30 @@ Phases, each timed on its own line:
      K1 launches per volume), its label maps against the plain (NDHWC)
      model's whole-volume prediction with the same weights (>= 99.99 % of
      voxels agree); vols/s;
- 17. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 17. k1_brats: K1 forward, dx and K1-dW at the 8 BraTS training shapes
+     (patch 96^3, B = TRAIN_BATCH: the eval fold grids at twice the eval
+     batch), the gates of 4, 6 and 5;
+ 18. brats_train: the same as 14 for BraTS-2019 through the BraTS train
+     CLI's Trainer at its defaults (30 + 2 synthetic .npz cases stored as
+     (128, 112, 100), read in the axial view (100, 112, 128); sliding-window
+     validation at stride 64/64), 16 + 7 K1 and 8 K1-dW launches and no K2
+     call per step; train/HD95 logged at every step (hd95_every is 1 at
+     val_every 2), perf/step_ms_p50 and perf/host_rss_gb at every
+     validation, and a code snapshot that holds the port's package and no
+     built library;
+ 19. monitor: the similarity monitor's histograms of one BraTS step's
+     embeddings and FeCL mask on the card against the same call on the
+     CPU: equal totals, edges within 1e-5 relative, each bin within the
+     count of pair similarities within 1e-5 x (hi - lo) of a bin edge;
+ 20. brats_eval: the BraTS test CLI on the first run's best checkpoint with
+     --axial 0 and --axial 1 (8 K1 launches per forward chunk), its label
+     maps against the plain (NDHWC) engine's with the same weights (>=
+     99.99 % of voxels agree); vols/s;
+ 21. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
-     ISLES whole-volume evaluation), each
+     ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
+     training), each
      with that path's launch count and the sums over its shapes; then
      `{"ok": true, "device": {...}}` last.
 
@@ -165,6 +186,14 @@ ISLES_EVAL_SHAPES = [
     ("up_concat1.conv1", (56, 56, 40), 384, 128, 1), ("up_concat1.conv2", (57, 57, 41), 128, 128, 0),
 ]
 ISLES_TRAIN_CASES, ISLES_VAL_CASES = 50, 2  # labelnum 10 = 45 labeled volumes, 5 not
+# BraTS-2019 training: patch 96^3 at batch TRAIN_BATCH, so K1's fold grids
+# are the eval shapes' (K1_SHAPES) at twice the eval batch. The synthetic
+# cases are stored sagittal (128, 112, 100), (100, 112, 128) in the axial
+# view the trainer reads: no cube (a missing or doubled transpose changes
+# shapes), even on every axis (every sliding-window origin is even, so the
+# folded path runs) and above 96 on every axis (the windowed read runs)
+BRATS_STORED = (128, 112, 100)
+BRATS_TRAIN_CASES, BRATS_VAL_CASES = 30, 2  # labelnum 25: 25 labeled, 5 not
 FECL_D = 256
 K2_SOURCE = "dycon_paper_replication_tpu_torch/ops/csrc/fecl_fused.cu"
 K2_REPLACES = "dycon_paper_replication_tpu/ops/fecl_fused.py:66 (_build: core / core_bwd)"
@@ -717,13 +746,14 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag):
     it and read after it, and must launch `want` ({name: count}), with
     finite scalars and no skip. Returns the launch sums, ms per step (the
     median of steps 2..TRAIN_STEPS), peak memory, the validation times and
-    the first run's snapshot path."""
+    the first run's snapshot path and the diagnostic outputs of its last
+    step."""
     from dycon_paper_replication_tpu_torch.config import config_from_args
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
     from dycon_paper_replication_tpu_torch.train.trainer import Trainer
     from dycon_paper_replication_tpu_torch.utils import checkpoint
 
-    steps, val_s = [], []
+    steps, val_s, diags = [], [], []
 
     def trainer_for(extra):
         trainer = Trainer(config_from_args(dataset, argv + extra))
@@ -735,7 +765,8 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*args, **kwargs)
-            vals = out.tolist()
+            vec, diags[:] = out[0], [out[1]]
+            vals = vec.tolist()
             ms = (time.perf_counter() - t0) * 1e3
             row = dict(**{k: c.launches for k, c in counters.items()}, ms=ms,
                        **dict(zip(SCALAR_METRICS, vals)))
@@ -791,7 +822,7 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag):
     ms_step = statistics.median(r["ms"] for r in steps[1:TRAIN_STEPS])
     return dict(launches={k: sum(r[k] for r in steps) for k in counters}, ms_per_step=ms_step,
                 all_ms=[round(r["ms"], 3) for r in steps], peak_gib=peak_gb, val_s=val_s,
-                snapshot=snapshot)
+                snapshot=snapshot, diag=diags[0] if diags else None)
 
 
 def phase_train(torch, tmp):
@@ -908,6 +939,162 @@ def phase_isles_eval(torch, device, isles):
     return dict(vols_per_s=len(preds) / cli_s, k1_launches=launches)
 
 
+def phase_brats_train(torch, tmp):
+    """BraTS-2019 training end to end through the BraTS train CLI's Trainer
+    at the brats19 defaults (patch 96^3, batch 8 of which 4 labeled,
+    labelnum 25, dense FeCL over N = 1728): a synthetic tree of
+    BRATS_TRAIN_CASES + BRATS_VAL_CASES .npz cases stored as BRATS_STORED, 4
+    steps with sliding-window validation and a save every 2 (so hd95_every
+    is 1), then a resume from step 4 to 6; 16 + 7 K1 and 8 K1-dW launches a
+    step and no K2 call. train/HD95 must be logged at every step, the perf/
+    scalars at every validation, and <snapshot>/code must hold the port's
+    package and no built library."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.data import make_brats19
+    from dycon_paper_replication_tpu_torch.ops.fecl_fused import fecl_bwd, fecl_fwd
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+
+    root = os.path.join(tmp, "BraTS2019")
+    t0 = time.perf_counter()
+    make_brats19(root, n_train=BRATS_TRAIN_CASES, n_test=BRATS_VAL_CASES, shape=BRATS_STORED,
+                 seed=SEED, suffix=".npz")
+    print(f"brats_train: wrote {BRATS_TRAIN_CASES} + {BRATS_VAL_CASES} cases stored as "
+          f"{BRATS_STORED} in {time.perf_counter() - t0:.3f} s")
+    runs = os.path.join(tmp, "brats_runs")
+    argv = ["--root_dir", root, "--snapshot_root", runs, "--device", "cuda", "--val_every", "2",
+            "--save_every", "2"]
+    counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw,
+                    k2_fwd=fecl_fwd, k2_bwd=fecl_bwd)
+    out = _drive_trainer(torch, "brats19", argv, counters,
+                         dict(k1=16, k1_dx=7, k1_dw=8, k2_fwd=0, k2_bwd=0), "brats_train")
+    tags = {}
+    with open(os.path.join(out["snapshot"], "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append(rec["step"])
+    hd95 = sorted(tags.get("train/HD95", []))
+    print(f"brats_train: train/HD95 at steps {hd95}; perf/step_ms_p50 at "
+          f"{tags.get('perf/step_ms_p50')}, perf/host_rss_gb at {tags.get('perf/host_rss_gb')}")
+    _check(hd95 == list(range(1, TRAIN_STEPS + 1)), f"brats_train: train/HD95 at {hd95}")
+    val_steps = sorted(tags.get("info/Dice", []))
+    _check(val_steps == [2, 4] and all(sorted(tags.get(t, [])) == val_steps for t in
+                                       ("perf/step_ms_p50", "perf/host_rss_gb")),
+           f"brats_train: validation at {val_steps}, perf/ scalars {tags}")
+    code = os.path.join(out["snapshot"], "code")
+    files = [os.path.relpath(os.path.join(d, f), code) for d, _, fs in os.walk(code) for f in fs]
+    print(f"brats_train: {len(files)} files in the code snapshot")
+    _check(os.path.join("train", "trainer.py") in files
+           and os.path.join("ops", "csrc", "folded_conv3.cu") in files
+           and not any(f.endswith(".so") or f.startswith(os.path.join("ops", "_build", ""))
+                       for f in files), "brats_train: the code snapshot")
+    _check(out["diag"] is not None and tuple(out["diag"]["embedding"].shape)
+           == (TRAIN_BATCH, 1728, FECL_D), "brats_train: the step's diagnostic outputs")
+    print(f"brats_train: {RESUME_STEPS} steps, {out['ms_per_step']:.3f} ms per step (median of "
+          f"steps 2-{TRAIN_STEPS}; all: {out['all_ms']}), peak memory {out['peak_gib']:.3f} GiB, "
+          f"sliding-window validation {[round(v, 3) for v in out['val_s']]} s for "
+          f"{BRATS_VAL_CASES} volumes = {BRATS_VAL_CASES / float(np.median(out['val_s'])):.4f} "
+          f"vols/s (median)")
+    return dict(out, root=root, runs=runs)
+
+
+def phase_monitor(torch, diag):
+    """similarity_histograms on one BraTS step's embedding and FeCL mask on
+    the card against the same call on their CPU copy: equal totals (B N^2
+    pairs), edges within 1e-5 relative, and each bin within the number of
+    pair similarities that lie within 1e-5 x (hi - lo) of a bin edge
+    (counted in float64 on the CPU)."""
+    from dycon_paper_replication_tpu_torch.utils.monitor import BINS, similarity_histograms
+
+    emb, mask = diag["embedding"], diag["mask_con"]
+    b, n, _ = emb.shape
+    t0 = time.perf_counter()
+    card = [t.cpu() for t in similarity_histograms(emb, mask)]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = similarity_histograms(emb.cpu(), mask.cpu())
+    cpu_s = time.perf_counter() - t0
+    lo, hi = float(cpu[2][0]), float(cpu[2][-1])
+    f64 = emb.cpu().double()
+    pos = torch.einsum("bcd,bnd->bcn", f64, f64) / 0.6
+    frac = (pos - lo) / (hi - lo) * BINS
+    near = int(((frac - frac.round()).abs() * (hi - lo) / BINS <= 1e-5 * (hi - lo)).sum())
+    del f64, pos, frac
+    edge_err = float((card[2] - cpu[2]).abs().max() / cpu[2].abs().max())
+    bin_diff = max(int((card[0] - cpu[0]).abs().max()), int((card[1] - cpu[1]).abs().max()))
+    totals = [int(card[0].sum() + card[1].sum()), int(cpu[0].sum() + cpu[1].sum())]
+    print(f"monitor: B {b}, N {n}: totals {totals} (B N^2 {b * n * n}), positive pairs "
+          f"{int(card[0].sum())}, edges [{lo:.6f}, {hi:.6f}], edge err {edge_err:.3e} relative, "
+          f"largest bin difference {bin_diff}, pairs within 1e-5 (hi - lo) of an edge {near}; "
+          f"card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+    _check(totals == [b * n * n] * 2, f"monitor: totals {totals}")
+    _check(edge_err <= 1e-5, f"monitor: edges differ by {edge_err} relative")
+    _check(bin_diff <= near, f"monitor: a bin differs by {bin_diff} > {near} near-edge pairs")
+
+
+def phase_brats_eval(torch, device, brats):
+    """The BraTS test CLI on the best checkpoint of the first training run,
+    with --axial 0 (the stored view) and --axial 1, 8 K1 launches per
+    forward chunk; its label maps (before the largest-component step)
+    against the plain (NDHWC) engine's with the same weights: >= 99.99 % of
+    voxels agree."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.cli import test_brats19
+    from dycon_paper_replication_tpu_torch.data.datasets import brats_case_paths
+    from dycon_paper_replication_tpu_torch.eval import (
+        SlidingWindowInference, compute_origins, iter_volumes)
+    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    plain = UNet3D(UNet3DConfig(layout="NDHWC")).to(device).eval()
+    checkpoint.restore_checkpoint(checkpoint.best_checkpoint_path(brats["snapshot"], "unet_3D"),
+                                  plain)
+    sw_plain = SlidingWindowInference(plain, PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
+    with open(os.path.join(brats["root"], "val.txt")) as f:
+        names = [line.strip() for line in f if line.strip()]
+    out = {}
+    for axial in (0, 1):
+        preds = []
+        real_map = SlidingWindowInference.map
+
+        def tee(self, volumes, **kwargs):
+            for item in real_map(self, volumes, **kwargs):
+                preds.append(item[0])
+                yield item
+
+        argv = ["--root_path", brats["root"], "--snapshot_root", brats["runs"], "--device",
+                "cuda", "--max_iterations", str(TRAIN_STEPS), "--axial", str(axial)]
+        folded_conv3.launches = 0
+        with mock.patch.object(SlidingWindowInference, "map", tee):
+            t0 = time.perf_counter()
+            avg = test_brats19.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        launches = folded_conv3.launches
+        shape = BRATS_STORED[::-1] if axial else BRATS_STORED
+        chunks = math.ceil(len(compute_origins(shape, PATCH, STRIDE_XY, STRIDE_Z)) / PATCH_BATCH)
+        print(f"brats_eval --axial {axial}: {len(preds)} volumes of {shape}, {chunks} chunks "
+              f"each, K1 launches {launches}, cli wall {cli_s:.3f} s, "
+              f"{len(preds) / cli_s:.4f} vols/s; metrics {[float(v) for v in avg]}")
+        _check(len(preds) == BRATS_VAL_CASES and launches == 8 * chunks * BRATS_VAL_CASES,
+               f"brats_eval --axial {axial}: {len(preds)} volumes, K1 launches {launches}")
+        _check(len(avg) == 4 and all(math.isfinite(v) for v in avg), f"metrics {avg}")
+        volumes = iter_volumes(brats_case_paths(brats["root"], names), axial_transpose=bool(axial))
+        for pred, (image, _) in zip(preds, volumes):
+            want, _ = sw_plain(image)
+            agree = float((pred == want).mean())
+            print(f"brats_eval --axial {axial}: label agreement folded (CLI) vs plain "
+                  f"{agree:.7f}, shape {pred.shape}, foreground {int(pred.sum())} vs "
+                  f"{int(want.sum())} voxels")
+            _check(pred.shape == shape and agree >= 0.9999,
+                   f"brats_eval --axial {axial}: label agreement {agree} < 0.9999")
+        out[axial] = dict(vols_per_s=len(preds) / cli_s, k1_launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -985,6 +1172,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_step_vs_cpu(torch, device, "isles22")
     _phase("step_vs_cpu_isles", t0)
+    t0 = time.perf_counter()
+    k1_brats_rows = phase_k1(torch, device, gen, peaks, K1_SHAPES, TRAIN_BATCH, "k1_brats")
+    dx_brats_rows = phase_dx(torch, device, gen, peaks, K1_SHAPES, "k1_dx_brats")
+    dw_brats_rows = phase_dw(torch, device, gen, peaks, K1_SHAPES, "k1_dw_brats")
+    _phase("k1_brats", t0)
 
     t0 = time.perf_counter()
     params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
@@ -1010,6 +1202,15 @@ def main() -> int:
         t0 = time.perf_counter()
         isles_eval = phase_isles_eval(torch, device, isles)
         _phase("isles_eval", t0)
+        t0 = time.perf_counter()
+        brats = phase_brats_train(torch, tmp)
+        _phase("brats_train", t0)
+        t0 = time.perf_counter()
+        phase_monitor(torch, brats.pop("diag"))
+        _phase("monitor", t0)
+        t0 = time.perf_counter()
+        phase_brats_eval(torch, device, brats)
+        _phase("brats_eval", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -1032,6 +1233,12 @@ def main() -> int:
                       isles["launches"]["k1_dw"], dw_isles_rows, bound="tf32x3"),
         _kernel_entry("folded_conv3_isles_eval", "isles_eval", k1_src, K1_REPLACES,
                       isles_eval["k1_launches"], k1_isles_eval_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_brats", "brats_train", k1_src, K1_REPLACES,
+                      brats["launches"]["k1"], k1_brats_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dx_brats", "brats_train", k1_src, dx_replaces,
+                      brats["launches"]["k1_dx"], dx_brats_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dw_brats", "brats_train", dw_src, dw_replaces,
+                      brats["launches"]["k1_dw"], dw_brats_rows, bound="tf32x3"),
     ]
     for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
                            ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):

@@ -14,12 +14,24 @@ CUDA, where the fold-2 conv is the hand-written kernel K1, and "NDHWC"
 elsewhere. The compute dtype on the card is float32.
 
 `build_parser` / `config_from_args` take the JAX package's flag names for
-what the port's trainer implements, plus `--device`, for the datasets the
-port trains ("pancreas", "isles22"); the flags of features not ported
-(VNet, ASPP, bf16, multi-device and DDP, the TPU host-loop options
---fetch_ahead, --step_diagnostics, --host_rss_exit_gb, --remat,
---wire_dtype) and the GPU-selection flags --gpu_id/--gpu_ids (the device is
---device) are refused by argparse rather than accepted and ignored.
+what the port's trainer implements, plus `--device`, for the three datasets
+("pancreas", "brats19", "isles22"). Refused by argparse rather than accepted
+and ignored:
+  * the flags of features not ported: VNet, ASPP, bf16, --remat,
+    --wire_dtype, and data parallelism (--data_parallel, and the
+    reference's --gpu_ids / --use_ddp: ROADMAP Queue A item 7); the device
+    is --device, so --gpu_id is refused too;
+  * --fetch_ahead, the JAX trainer's deferred scalar fetch. It hides the
+    round trip of the TPU's host link behind the next step; on the card the
+    device is idle for 0.025 (ISLES), 0.029 (BraTS) and 0.033 (Pancreas) of
+    a step (PERF.md section 5), so there is little for it to hide;
+  * --step_diagnostics, which picks the JAX step's light or full program:
+    the port's one eager step returns its diagnostic outputs every time
+    (train/step.py).
+`--deterministic 0` draws the run's seed from the OS and turns on
+cudnn.benchmark (train/trainer.py; 1, the default, keeps the seed and
+turns it off); `--host_rss_exit_gb` is the host-RSS watchdog's bar (0
+turns it off).
 `--fecl_chunk N > 0` runs FeCL over row tiles of N, through `--fecl_impl`
 "fused" (the closed-form backward, ops/fecl_fused.py, K2 on the card) or
 "chunked" (ops/dycon.py:fecl_loss_chunked); 0 is the dense FeCL.
@@ -104,7 +116,6 @@ class TrainConfig:
     time_budget_s: float = 0.0
     host_rss_exit_gb: float = 100.0
     fetch_ahead: int = 1
-    step_diagnostics: str = "cadence"
     layout: str = "auto"  # auto | NDHWC | folded
     device: str = "cuda"  # cuda | cpu
 
@@ -182,7 +193,7 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--exp", type=str, default=d.exp)
     p.add_argument("--model", type=str, choices=["unet_3D"], default=d.model)
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[1])
+    p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[0, 1])
     p.add_argument("--in_ch", type=int, default=d.in_ch)
     p.add_argument("--num_classes", type=int, default=d.num_classes)
     p.add_argument("--feature_scaler", type=int, default=d.feature_scaler)
@@ -214,6 +225,8 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                    help="wall-clock budget; 0 = unlimited (clean exit + resumable ckpt)")
     p.add_argument("--resume", type=str, default=d.resume,
                    help='"" fresh, "auto" = latest ckpt of this run dir, or a path')
+    p.add_argument("--host_rss_exit_gb", type=float, default=d.host_rss_exit_gb,
+                   help="save resumably and stop when host RSS reaches this (GB); 0 = off")
     p.add_argument("--layout", type=str, default=d.layout, choices=["auto", "NDHWC", "folded"])
     p.add_argument("--fecl_chunk", type=_non_negative, default=d.fecl_chunk,
                    help="FeCL row tile; 0 = dense")

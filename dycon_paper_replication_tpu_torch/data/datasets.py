@@ -1,13 +1,16 @@
-"""Volume datasets of {'image', 'label'} cases: the Pancreas-CT and the
-ISLES-2022 splits.
+"""Volume datasets of {'image', 'label'} cases: the BraTS-2019, Pancreas-CT
+and ISLES-2022 splits.
 
-Counterpart of `H5VolumeDataset`, `Pancreas` and `ISLESDataset` in
-dycon_paper_replication_tpu/data/datasets.py. A case is an `.h5` file (read
-with h5py, imported only then) or an `.npz` archive of the same arrays
+Counterpart of `H5VolumeDataset`, `BraTS2019`, `Pancreas` and `ISLESDataset`
+in dycon_paper_replication_tpu/data/datasets.py. A case is an `.h5` file
+(read with h5py, imported only then) or an `.npz` archive of the same arrays
 (numpy alone), chosen by the file's extension. With `crop_size`, the crop
-origin is drawn from the stored shape exactly as RandomCrop draws it, and an
-.h5 case reads only that window; an .npz case is read whole and then cut,
-which gives the same sample. BraTS is not ported yet.
+origin is drawn from the (viewed) shape exactly as RandomCrop draws it, and
+an .h5 case reads only that window; an .npz case is read whole and then cut,
+which gives the same sample. BraTS' sagittal-to-axial (2, 1, 0) transpose is
+folded into the read path (`axial_transpose`): the shape is the stored one
+reversed, a crop window is reversed before the read, and the sample is
+transposed after it.
 """
 
 from __future__ import annotations
@@ -25,11 +28,19 @@ def _read_list(path: str) -> list[str]:
         return [line.strip().split(",")[0] for line in f if line.strip()]
 
 
+def case_path(base: str, name: str) -> str | None:
+    """<base>/<name>.h5 or, where that is missing, <base>/<name>.npz; None
+    when neither exists."""
+    h5, npz = (os.path.join(base, name + ext) for ext in (".h5", ".npz"))
+    return h5 if os.path.exists(h5) else npz if os.path.exists(npz) else None
+
+
 class VolumeDataset:
     """A list of case files holding `image` and `label` volumes of one
     spatial shape."""
 
     label_key = "label"
+    axial_transpose = False  # fold a (2, 1, 0) transpose into reads (BraTS)
 
     def __init__(self, paths: Sequence[str], transform: Compose | None = None,
                  crop_size: tuple[int, int, int] | None = None):
@@ -52,11 +63,15 @@ class VolumeDataset:
 
                 with h5py.File(path, "r") as f:
                     self._shapes[idx] = tuple(f["image"].shape)
+            if self.axial_transpose:
+                self._shapes[idx] = self._shapes[idx][::-1]
         return self._shapes[idx]
 
     def _read(self, idx: int, window: tuple[slice, ...] | None = None) -> dict:
         path = self.paths[idx]
         window = window if window is not None else (slice(None),) * 3
+        if self.axial_transpose:
+            window = window[::-1]
         if path.endswith(".npz"):
             with np.load(path) as f:
                 image, label = f["image"][window], f[self.label_key][window]
@@ -65,6 +80,8 @@ class VolumeDataset:
 
             with h5py.File(path, "r") as f:
                 image, label = f["image"][window], f[self.label_key][window]
+        if self.axial_transpose:
+            image, label = np.transpose(image, (2, 1, 0)), np.transpose(label, (2, 1, 0))
         return {"image": np.asarray(image, np.float32), "label": np.asarray(label, np.uint8)}
 
     def get(self, idx: int, rng: np.random.Generator) -> dict:
@@ -79,6 +96,28 @@ class VolumeDataset:
         if self.transform is not None:
             sample = self.transform(sample, rng)
         return sample
+
+
+class BraTS2019(VolumeDataset):
+    """BraTS-2019 whole-tumor volumes in axial view: <base_dir>/{train,test}.txt
+    naming cases <base_dir>/data/<name>.h5 or, where that is missing,
+    <name>.npz (an .h5 path when neither exists, which fails on read)."""
+
+    axial_transpose = True
+
+    def __init__(self, base_dir: str, split: str = "train", num: int | None = None,
+                 transform: Compose | None = None, crop_size=None):
+        names = _read_list(os.path.join(base_dir, "train.txt" if split == "train"
+                                        else "test.txt"))
+        if num is not None:
+            names = names[:num]
+        super().__init__(brats_case_paths(base_dir, names), transform, crop_size)
+
+
+def brats_case_paths(base_dir: str, names: Sequence[str]) -> list[str]:
+    """The case file of each BraTS case name (BraTS2019's rule)."""
+    data = os.path.join(base_dir, "data")
+    return [case_path(data, n) or os.path.join(data, n + ".h5") for n in names]
 
 
 class Pancreas(VolumeDataset):
@@ -109,9 +148,9 @@ class ISLESDataset(VolumeDataset):
             raise FileNotFoundError(f"List file {list_file} not found.")
         paths, self.missing = [], []
         for name in _read_list(list_file):
-            h5, npz = (os.path.join(h5_dir, name + ext) for ext in (".h5", ".npz"))
-            if os.path.exists(h5) or os.path.exists(npz):
-                paths.append(h5 if os.path.exists(h5) else npz)
+            path = case_path(h5_dir, name)
+            if path is not None:
+                paths.append(path)
             else:
-                self.missing.append(h5)
+                self.missing.append(os.path.join(h5_dir, name + ".h5"))
         super().__init__(paths, transform, crop_size)

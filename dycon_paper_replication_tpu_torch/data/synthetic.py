@@ -1,7 +1,8 @@
-"""Deterministic synthetic Pancreas- and ISLES-format dataset trees.
+"""Deterministic synthetic BraTS-, Pancreas- and ISLES-format dataset trees.
 
-Counterpart of `_ellipsoid_volume`, `make_pancreas` and `make_isles22` in
-dycon_paper_replication_tpu/data/synthetic.py: a tree
+Counterpart of `_ellipsoid_volume`, `make_brats19`, `make_pancreas` and
+`make_isles22` in dycon_paper_replication_tpu/data/synthetic.py: a tree
+{root}/{train,test,val}.txt + data/<case> for BraTS,
 {root}/{train,test,test1}.list + Pancreas_data/<case>, or
 {root}/{train,val}.list + <case> for ISLES, each case an `image` float32
 volume with a random ellipsoid "lesion" in its label array (`label`, or
@@ -43,6 +44,25 @@ def write_case(path: str, image: np.ndarray, label: np.ndarray,
     with h5py.File(path, "w") as f:
         f.create_dataset("image", data=image)
         f.create_dataset(label_key, data=label)
+
+
+def make_brats19(root: str, n_train: int = 8, n_test: int = 3, shape=(64, 64, 48), seed: int = 0,
+                 suffix: str = ".h5") -> dict[str, list[str]]:
+    """BraTS-like tree: {root}/{train,test,val}.txt (val = test) of case
+    names + data/<name><suffix>, the same volumes for either suffix, stored
+    in the sagittal view (BraTS2019 reads them axial)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    names = {"train": [f"case_{i:03d}" for i in range(n_train)],
+             "test": [f"case_t{i:03d}" for i in range(n_test)]}
+    names["val"] = names["test"]
+    for split in ("train", "test", "val"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names[split]) + "\n")
+    for name in names["train"] + names["test"]:
+        image, label = _ellipsoid_volume(rng, shape)
+        write_case(os.path.join(root, "data", name + suffix), image, label)
+    return names
 
 
 def make_pancreas(root: str, n_train: int = 8, n_test: int = 3, shape=(72, 72, 56),

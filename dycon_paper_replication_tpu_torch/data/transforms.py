@@ -1,11 +1,11 @@
 """Numpy volume transforms over {'image', 'label'} sample dicts, each drawing
 from an explicit `numpy.random.Generator`.
 
-Counterpart of `Compose`, `RandomCrop`, `RandomRotFlip` and `ToArray` in
-dycon_paper_replication_tpu/data/transforms.py, drawing the same numbers
-in the same order, so one seed gives the same samples. `ToArray` gives the
-image as (D1, D2, D3, 1) float32, channels-last, and the label as
-(D1, D2, D3) int32.
+Counterpart of `Compose`, `SagittalToAxial`, `RandomCrop`, `RandomRotFlip`
+and `ToArray` in dycon_paper_replication_tpu/data/transforms.py, drawing
+the same numbers in the same order, so one seed gives the same samples.
+`ToArray` gives the image as (D1, D2, D3, 1) float32, channels-last, and
+the label as (D1, D2, D3) int32.
 """
 
 from __future__ import annotations
@@ -23,6 +23,16 @@ class Compose:
         for t in self.transforms:
             sample = t(sample, rng)
         return sample
+
+
+class SagittalToAxial:
+    """Transpose (H, W, D) -> (D, W, H), the BraTS volumes' axial view."""
+
+    def __call__(self, sample: dict, rng: np.random.Generator) -> dict:
+        image, label = sample["image"], sample["label"]
+        if image.shape != label.shape:
+            raise ValueError("image/label shape mismatch")
+        return {"image": np.transpose(image, (2, 1, 0)), "label": np.transpose(label, (2, 1, 0))}
 
 
 def _pad_margin(shape, output_size) -> tuple[bool, list[int]]:

@@ -24,26 +24,33 @@ from ..ops import metrics
 from .sliding_window import SlidingWindowInference
 
 
-def iter_h5_volumes(paths: Iterable[str],
-                    label_key: str = "label") -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Yield (image, label uint8) pairs from .h5 files. (The BraTS axial
-    view change of the JAX reader comes with the BraTS slice.)"""
+def iter_h5_volumes(paths: Iterable[str], label_key: str = "label",
+                    axial_transpose: bool = False) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield (image, label uint8) pairs from .h5 files. `axial_transpose`
+    applies the BraTS (2, 1, 0) view change to both."""
     import h5py
 
     for path in paths:
         with h5py.File(path, "r") as f:
-            yield f["image"][:], f[label_key][:].astype(np.uint8)
+            image, label = f["image"][:], f[label_key][:].astype(np.uint8)
+        if axial_transpose:
+            image, label = np.transpose(image, (2, 1, 0)), np.transpose(label, (2, 1, 0))
+        yield image, label
 
 
-def iter_volumes(paths: Iterable[str], label_key: str = "label"):
+def iter_volumes(paths: Iterable[str], label_key: str = "label", axial_transpose: bool = False):
     """Yield (image, label uint8) pairs from .h5 or .npz files (an .npz holds
-    the same `image` and label arrays, and needs no h5py)."""
+    the same `image` and label arrays, and needs no h5py), transposed
+    (2, 1, 0) with `axial_transpose`."""
     for path in paths:
-        if path.endswith(".npz"):
-            with np.load(path) as f:
-                yield f["image"], f[label_key].astype(np.uint8)
-        else:
-            yield from iter_h5_volumes([path], label_key)
+        if not path.endswith(".npz"):
+            yield from iter_h5_volumes([path], label_key, axial_transpose)
+            continue
+        with np.load(path) as f:
+            image, label = f["image"], f[label_key].astype(np.uint8)
+        if axial_transpose:
+            image, label = np.transpose(image, (2, 1, 0)), np.transpose(label, (2, 1, 0))
+        yield image, label
 
 
 def var_all_case(sw: SlidingWindowInference,

@@ -18,8 +18,9 @@ folded slices, the foreground probability is sigmoid(l1 - l0) on the
 class-major lanes of the folded logits, and the score unfolds once. Any odd
 origin takes the plain accumulator (softmax of channels-last logits).
 
-Not ported yet: mesh sharding, volume groups larger than 1, the host
-staging ring and bit-packed labels. The label map comes back as uint8.
+Not ported yet: mesh sharding, volume groups larger than 1 and the host
+staging ring. The label map comes back as uint8, unpacked: on the card a
+uint8 copy beats packing it (ops/bits.py).
 """
 
 from __future__ import annotations

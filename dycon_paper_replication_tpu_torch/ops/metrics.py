@@ -3,7 +3,8 @@
 Counterpart of the host half of dycon_paper_replication_tpu/ops/metrics.py
 (its device half is JAX and is not needed by the evaluation path):
 dice / jaccard scalars, hd95, asd, sensitivity, specificity,
-calculate_metric_percase, largest_connected_component.
+calculate_metric_percase, compute_hd95_batch (the trainer's train-HD95),
+largest_connected_component.
 
 medpy conventions (medpy.metric.binary, which the original evaluation uses):
   * surface voxels = object minus its binary erosion with the
@@ -106,6 +107,15 @@ def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray) -> tuple:
     if np.asarray(gt).sum() == 0 or np.asarray(pred).sum() == 0:
         return d, j, 0.0, 0.0
     return d, j, hd95(pred, gt), asd(pred, gt)
+
+
+def compute_hd95_batch(pred: np.ndarray, target: np.ndarray, max_dist: float) -> list[float]:
+    """hd95 per batch item, `max_dist` where either mask is empty (the
+    reference training loop's metric)."""
+    out = []
+    for p, t in zip(np.asarray(pred), np.asarray(target)):
+        out.append(float(max_dist) if p.sum() == 0 or t.sum() == 0 else hd95(p, t))
+    return out
 
 
 def largest_connected_component(segmentation: np.ndarray) -> np.ndarray:

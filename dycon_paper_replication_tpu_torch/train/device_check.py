@@ -137,10 +137,10 @@ def run_step(state: TrainState, batch: dict[str, np.ndarray], noise: np.ndarray,
     """One step of `state` (on `device`, updated in place); its scalars."""
     cfg = step_config(device, config)
     step = build_train_step(cfg, lambda _: cfg.base_lr)
-    out = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
-               torch.Generator(device=device).manual_seed(0),
-               SCALARS_ISLES if config == "isles22" else SCALARS,
-               noise=torch.from_numpy(noise).to(device))
+    out, _ = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                  torch.Generator(device=device).manual_seed(0),
+                  SCALARS_ISLES if config == "isles22" else SCALARS,
+                  noise=torch.from_numpy(noise).to(device))
     return out.cpu().numpy()
 
 

@@ -19,8 +19,14 @@ packages the same numbers. The NaN/Inf check reads the loss on the host,
 one sync per step. FeCL is dense at `fecl_chunk` 0; above it, over row
 tiles of `fecl_chunk` through `fecl_impl` "fused" (ops/fecl_fused.py: the
 closed-form backward, the kernel K2 on the card) or "chunked"
-(ops/dycon.py:fecl_loss_chunked). Not ported: the light/full step pair and
-the diagnostic outputs (train-HD95 bits, monitor embeddings); `remat`.
+(ops/dycon.py:fecl_loss_chunked).
+
+Beside the scalars, every step returns the outputs the trainer reads on
+its train-HD95 and monitor iterations (the JAX full step's): the student's
+foreground `pred_fg` (s_probs[..., 1] > 0.5, uint8), its L2-normalised
+`embedding` (B, N, D) and the pooled FeCL mask `mask_con` (B, N). They are
+tensors the step computes anyway, so the JAX light/full pair, which saves
+compiling a second program, has no eager counterpart. Not ported: `remat`.
 """
 
 from __future__ import annotations
@@ -73,9 +79,10 @@ def ema_alpha(step: int, decay: float) -> float:
 
 
 def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> Callable:
-    """train_step(state, batch, generator, scalars, noise=None) -> the
-    float32 vector of SCALAR_METRICS on the device; `state` is updated in
-    place. `lr_schedule` maps the step count to the learning rate."""
+    """train_step(state, batch, generator, scalars, noise=None) -> (the
+    float32 vector of SCALAR_METRICS on the device, {"pred_fg",
+    "embedding", "mask_con"}); `state` is updated in place. `lr_schedule`
+    maps the step count to the learning rate."""
     lbs = cfg.labeled_bs
 
     def loss_fn(student, image, label, t_logits, t_features, generator, scalars: StepScalars):
@@ -118,10 +125,10 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
 
         total = (cfg.l_weight * (loss_ce + loss_dice) + scalars.consistency_weight * cons
                  + cfg.u_weight * (f_loss + u_loss))
-        return total, (loss_ce, loss_dice, f_loss, u_loss, cons), s_probs
+        return total, (loss_ce, loss_dice, f_loss, u_loss, cons), (s_probs, stud_emb, mask)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
-                   scalars: StepScalars, noise: torch.Tensor | None = None) -> torch.Tensor:
+                   scalars: StepScalars, noise: torch.Tensor | None = None):
         image = batch["image"].to(torch.float32)
         label = batch["label"].long()
         if noise is None:
@@ -135,8 +142,8 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         student = state.student.train()
         stats = {k: b.clone() for k, b in student.named_buffers()}
         student.zero_grad(set_to_none=True)
-        total, parts, s_probs = loss_fn(student, image, label, t_logits, t_features,
-                                        generator, scalars)
+        total, parts, (s_probs, stud_emb, mask) = loss_fn(student, image, label, t_logits,
+                                                          t_features, generator, scalars)
         total.backward()
 
         # NaN/Inf guard: drop the whole update (parameters, student stats,
@@ -155,11 +162,14 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         student.zero_grad(set_to_none=True)
 
         with torch.no_grad():
-            pred_fg = (s_probs[..., 1] > 0.5).to(torch.float32)
+            fg = s_probs[..., 1] > 0.5
+            pred_fg = fg.to(torch.float32)
             lab_f = label.to(torch.float32)
             inter = (pred_fg * lab_f).sum(dim=(1, 2, 3))
             dice_b = 2.0 * inter / (pred_fg.sum(dim=(1, 2, 3)) + lab_f.sum(dim=(1, 2, 3)) + 1e-8)
-            return torch.stack([total.detach(), *(p.detach() for p in parts), dice_b.mean(),
-                                torch.tensor(float(bad), device=image.device)])
+            vec = torch.stack([total.detach(), *(p.detach() for p in parts), dice_b.mean(),
+                               torch.tensor(float(bad), device=image.device)])
+        return vec, {"pred_fg": fg.view(torch.uint8), "embedding": stud_emb.detach(),
+                     "mask_con": mask}
 
     return train_step

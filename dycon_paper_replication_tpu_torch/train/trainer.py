@@ -1,41 +1,58 @@
-"""The DyCON trainer, Pancreas and ISLES-2022 paths.
+"""The DyCON trainer: Pancreas, BraTS-2019 and ISLES-2022.
 
-Counterpart of dycon_paper_replication_tpu/train/trainer.py for the part
-that canonical Pancreas and ISLES training run:
-  * the data: the train split (Pancreas, or ISLES with labelnum counted in
-    patients, ISLES_PATIENTS_TO_SLICES), random crop + rot/flip, the
-    two-stream sampler (the labeled cases first) and the prefetching loader;
+Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
+  * the data: the train split (Pancreas, BraTS in axial view, or ISLES with
+    labelnum counted in patients, ISLES_PATIENTS_TO_SLICES), random crop +
+    rot/flip, the two-stream sampler (the labeled cases first) and the
+    prefetching loader;
   * the host schedules: per epoch beta and the FeCL focal thresholds, per
     iteration the consistency weight;
   * the step (train/step.py) on the device, one sync per step for its
-    scalars;
+    scalars, timed by a StepTimer;
+  * train-HD95 every `hd95_every = max(val_every // 4, 1)` iterations and at
+    the first, over the whole batch against its labels (max_dist = the
+    patch diagonal for an empty mask): the step's foreground mask is copied
+    to the host and scored on one worker thread while the loop goes on, and
+    each train/HD95 scalar is logged at its own iteration once it is done
+    (all of them before the run returns); the similarity monitor every 200
+    iterations into <snapshot>/<exp>_similarity;
   * validation every `val_every` iterations, with the student in eval mode
-    and no gradient: Pancreas through the sliding window at val_stride_xy /
-    val_stride_z over test1.list, ISLES by one whole-volume forward per
-    val.list case, argmaxing the SDF head as the reference does; a better
-    Dice saves iter_<N>_dice_<D> and the best model, each a full train
-    state;
+    and no gradient: Pancreas and BraTS through the sliding window at
+    val_stride_xy / val_stride_z (Pancreas over test1.list, BraTS over
+    val.txt in axial view), ISLES by one whole-volume forward per val.list
+    case, argmaxing the SDF head as the reference does; a better Dice saves
+    iter_<N>_dice_<D> and the best model, each a full train state; the
+    StepTimer's perf/* scalars and perf/host_rss_gb are logged there;
   * a full-state save every `save_every` iterations, `resume` ("", "auto"
-    or a path) and `time_budget_s` (a clean, resumable stop).
-Not ported (ROADMAP Queue A): the deferred scalar fetch (`fetch_ahead`),
-the light/full step pair, train-HD95, the similarity monitor, the host-RSS
-watchdog, StepTimer, the code snapshot, BraTS data and the multi-device
-rules.
+    or a path), and two clean, resumable stops: `time_budget_s`, and the
+    host-RSS watchdog (every 20 iterations, `host_rss_exit_gb`);
+  * a copy of the port's package in <snapshot>/code (without the kernel
+    build directory), and `deterministic=0`: a seed drawn from the OS,
+    logged, with cudnn.benchmark on and cudnn.deterministic off, as the
+    reference's flag did (`deterministic=1` sets them the other way).
+A NaN/Inf step is skipped as the reference's `continue`: it advances
+neither the iteration count nor any cadence. Not ported (ROADMAP Queue A
+item 7): the multi-device rules.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
+import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from .. import weights
 from ..config import TrainConfig, resolve_device
 from ..data import (
     BatchLoader,
+    BraTS2019,
     Compose,
     ISLESDataset,
     Pancreas,
@@ -43,6 +60,7 @@ from ..data import (
     ToArray,
     TwoStreamBatchSampler,
 )
+from ..data.datasets import brats_case_paths
 from ..eval import (
     SlidingWindowInference,
     WholeVolumeInference,
@@ -51,9 +69,11 @@ from ..eval import (
     var_all_case_wholevolume,
 )
 from ..models import UNet3D, UNet3DConfig
-from ..ops import ramps
+from ..ops import metrics, ramps
 from ..utils import checkpoint
 from ..utils.logging import ExperimentLogger
+from ..utils.monitor import monitor_similarity_distributions
+from ..utils.profiling import StepTimer
 from .state import create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
 
@@ -64,20 +84,57 @@ ISLES_PATIENTS_TO_SLICES = {
     11: 27, 12: 29, 13: 32, 14: 29, 15: 44, 16: 38, 17: 29, 18: 23, 19: 48,
     20: 42, 21: 31, 22: 48, 23: 42, 24: 23, 25: 29,
 }
+DATASETS = ("pancreas", "brats19", "isles22")
+MONITOR_EVERY = 200
+RSS_EVERY = 20
+_PAGE_GB = os.sysconf("SC_PAGE_SIZE") / 1024 ** 3 if hasattr(os, "sysconf") else 0.0
+
+
+def copy_package(dst: str, src: str = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+                 ) -> None:
+    """Copy the package at `src` (the port's) to `dst`, without caches and
+    the kernel build directory (ops/_build)."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "_build"))
+
+
+def _host_rss_gb() -> float:
+    """This process's resident set in GB (0.0 where /proc is absent)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * _PAGE_GB
+    except (OSError, ValueError, IndexError):
+        return 0.0
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig):
-        if cfg.dataset not in ("pancreas", "isles22"):
-            raise ValueError(f"dataset {cfg.dataset!r} is not ported yet (pancreas, isles22)")
-        self.cfg = cfg
+        if cfg.dataset not in DATASETS:
+            raise ValueError(f"dataset {cfg.dataset!r} is not one of {DATASETS}")
         self.device = resolve_device(cfg.device)
+        notes = []
+        if not cfg.deterministic:
+            # the reference's deterministic=0 turns on cudnn.benchmark and
+            # gives up reproducibility; the run's seed comes from the OS
+            seed = int.from_bytes(os.urandom(4), "little")
+            notes.append(f"deterministic=0: seed drawn from OS entropy -> {seed}; "
+                         "cudnn.benchmark on")
+            cfg = dataclasses.replace(cfg, seed=seed)
+        # process-wide: set on both branches, so that a deterministic run
+        # after a deterministic=0 one in the same process is deterministic
+        torch.backends.cudnn.benchmark = not cfg.deterministic
+        torch.backends.cudnn.deterministic = bool(cfg.deterministic)
+        self.cfg = cfg
         self.snapshot_path = cfg.snapshot_path()
         os.makedirs(self.snapshot_path, exist_ok=True)
         self.log = ExperimentLogger(self.snapshot_path)
+        for note in notes:
+            self.log.info(note)
         self.log.info(str(dataclasses.asdict(cfg)))
         with open(os.path.join(self.snapshot_path, "config.json"), "w") as f:
             json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
+        code = os.path.join(self.snapshot_path, "code")  # the reference copies its code per run
+        if not os.path.exists(code):
+            copy_package(code)
 
         net_cfg = UNet3DConfig(in_channels=cfg.in_ch, n_classes=cfg.num_classes,
                                scale_factor=cfg.feature_scaler,
@@ -102,6 +159,8 @@ class Trainer:
         else:
             schedule = lambda step: cfg.base_lr  # noqa: E731
         self.train_step = build_train_step(cfg, schedule)
+        self.timer = StepTimer()
+        self.hd95_every = max(cfg.val_every // 4, 1)
         self._build_data()
         if cfg.dataset == "isles22":
             self.whole_volume = WholeVolumeInference(self.state.student, cfg.patch_size,
@@ -119,6 +178,10 @@ class Trainer:
             ds = ISLESDataset(cfg.root_dir, split="train", transform=transform,
                               crop_size=cfg.patch_size)
             labeled = ISLES_PATIENTS_TO_SLICES.get(cfg.labelnum, cfg.labelnum)
+        elif cfg.dataset == "brats19":
+            ds = BraTS2019(cfg.root_dir, split="train", transform=transform,
+                           crop_size=cfg.patch_size)
+            labeled = cfg.labelnum
         else:
             ds = Pancreas(cfg.root_dir, split="train", transform=transform,
                           crop_size=cfg.patch_size)
@@ -149,6 +212,10 @@ class Trainer:
         cfg = self.cfg
         if cfg.dataset == "isles22":
             return iter_volumes(ISLESDataset(cfg.root_dir, split="val").paths, label_key="mask")
+        if cfg.dataset == "brats19":
+            with open(os.path.join(cfg.root_dir, "val.txt")) as f:
+                names = [line.strip() for line in f if line.strip()]
+            return iter_volumes(brats_case_paths(cfg.root_dir, names), axial_transpose=True)
         # Pancreas: test1.list, as the reference, which fails when it is missing
         with open(os.path.join(cfg.root_dir, "test1.list")) as f:
             names = [line.strip() for line in f if line.strip()]
@@ -168,6 +235,30 @@ class Trainer:
     def _save(self, path: str, iter_num: int) -> None:
         checkpoint.save_train_state(path, self.state,
                                     meta={"step": iter_num, "best_dice": self.best_performance})
+
+    def _hd95_due(self, iter_num: int) -> bool:
+        return iter_num % self.hd95_every == 0 or iter_num == 1
+
+    def _diagnostics(self, diag: dict, label: np.ndarray, iter_num: int, pool) -> None:
+        """The similarity monitor, and train-HD95 handed to `pool`, on
+        their iterations."""
+        cfg = self.cfg
+        if iter_num % MONITOR_EVERY == 0:
+            monitor_similarity_distributions(
+                diag["embedding"], diag["mask_con"], iter_num,
+                os.path.join(self.snapshot_path, f"{cfg.exp}_similarity"))
+        if self._hd95_due(iter_num):
+            max_dist = float(np.linalg.norm(cfg.patch_size))
+            self._hd95_pending.append((iter_num, pool.submit(
+                metrics.compute_hd95_batch, diag["pred_fg"].cpu().numpy(), label, max_dist)))
+
+    def _log_hd95(self, wait: bool) -> None:
+        """Log the finished train-HD95 scores in iteration order; with
+        `wait`, all of them."""
+        pending = self._hd95_pending
+        while pending and (wait or pending[0][1].done()):
+            iter_num, future = pending.popleft()
+            self.log.scalar("train/HD95", float(np.mean(future.result())), iter_num)
 
     def _after_step(self, v: dict, scalars: StepScalars, iter_num: int) -> None:
         """Logging, validation and the periodic save after applied step `iter_num`."""
@@ -194,8 +285,22 @@ class Trainer:
                              iter_num)
             self.log.info("Iteration %d : Dice: %f Best_dice: %f", iter_num, float(avg),
                           self.best_performance)
+            self.log.scalars({**{f"perf/{k}": x for k, x in self.timer.stats().items()},
+                              "perf/host_rss_gb": _host_rss_gb()}, iter_num)
         if iter_num % cfg.save_every == 0:
             self._save(checkpoint.iter_checkpoint_path(self.snapshot_path, iter_num), iter_num)
+
+    def _stop_reason(self, iter_num: int, t_start: float) -> str | None:
+        """Why the run stops cleanly after applied step `iter_num`, if it does:
+        the time budget, or the host-RSS watchdog every RSS_EVERY iterations."""
+        cfg = self.cfg
+        if cfg.time_budget_s and time.monotonic() - t_start >= cfg.time_budget_s:
+            return f"Time budget {cfg.time_budget_s:.0f}s exceeded"
+        if cfg.host_rss_exit_gb and iter_num % RSS_EVERY == 0:
+            rss = _host_rss_gb()
+            if rss >= cfg.host_rss_exit_gb:
+                return f"Host RSS {rss:.1f} GB >= host_rss_exit_gb {cfg.host_rss_exit_gb:.0f}"
+        return None
 
     def run(self) -> float:
         cfg = self.cfg
@@ -205,6 +310,8 @@ class Trainer:
             (cfg.seed + 1) * 1_000_003 + iter_num)
         start_epoch = iter_num // self.iters_per_epoch
         last_epoch = None
+        self._hd95_pending = collections.deque()
+        pool = ThreadPoolExecutor(1, thread_name_prefix="train-hd95")
         try:
             batches = self.loader.epochs(max(1, self.max_epoch - start_epoch))
             for epoch_idx, batch in batches if iter_num < cfg.max_iterations else ():
@@ -213,25 +320,32 @@ class Trainer:
                     beta, pos_th, neg_th = self._epoch_scalars(epoch)
                     last_epoch = epoch
                 scalars = StepScalars(beta, self._consistency_weight(iter_num), pos_th, neg_th)
-                batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-                v = dict(zip(SCALAR_METRICS, self.train_step(self.state, batch, generator,
-                                                             scalars).tolist()))
+                t0 = self.timer.start()
+                vec, diag = self.train_step(self.state, {k: torch.from_numpy(x).to(self.device)
+                                                         for k, x in batch.items()},
+                                            generator, scalars)
+                v = dict(zip(SCALAR_METRICS, vec.tolist()))
+                self.timer.stop(start=t0)
                 if v["skipped"]:
                     # as the reference's `continue`: neither the step nor the
-                    # schedules advance
+                    # schedules and cadences advance
                     self.log.info("NaN or Inf found in loss at iteration %d — skipped", iter_num)
                     continue
                 iter_num += 1
+                self._diagnostics(diag, batch["label"], iter_num, pool)
+                self._log_hd95(wait=False)
                 self._after_step(v, scalars, iter_num)
                 if iter_num >= cfg.max_iterations:
                     break
-                if cfg.time_budget_s and time.monotonic() - t_start >= cfg.time_budget_s:
+                reason = self._stop_reason(iter_num, t_start)
+                if reason:
                     self._save(checkpoint.iter_checkpoint_path(self.snapshot_path, iter_num),
                                iter_num)
-                    self.log.info("Time budget %.0fs exceeded at iteration %d — saved and "
-                                  "stopping", cfg.time_budget_s, iter_num)
+                    self.log.info("%s at iteration %d — saved and stopping", reason, iter_num)
                     break
+            self._log_hd95(wait=True)
             self.log.info("Training Finished!")
         finally:
+            pool.shutdown(wait=True, cancel_futures=True)
             self.log.close()
         return self.best_performance

@@ -1,1 +1,2 @@
-"""Utilities: checkpoints and the experiment logger."""
+"""Utilities: checkpoints, the experiment logger, step timing and the
+similarity monitor."""

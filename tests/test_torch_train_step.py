@@ -114,9 +114,9 @@ def _run_both(jax_step, js, port, batch, key, scalars):
     _, step, _ = jax_step
     new_js, metrics = step(js, {k: jnp.asarray(v) for k, v in batch.items()}, key,
                            JaxScalars.make(*scalars))
-    got = _port_step()(port, {k: torch.from_numpy(v) for k, v in batch.items()},
-                       torch.Generator().manual_seed(0), StepScalars(*scalars),
-                       noise=torch.tensor(_noise(key, batch["image"].shape)))
+    got, _ = _port_step()(port, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          torch.Generator().manual_seed(0), StepScalars(*scalars),
+                          noise=torch.tensor(_noise(key, batch["image"].shape)))
     return new_js, np.asarray(metrics["scalars"]), got.numpy()
 
 
