@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from the checkout and drives the port's
 paths, Pancreas sliding-window evaluation, Pancreas DyCON training,
-ISLES-2022 training with whole-volume evaluation and BraTS-2019 training
-with sliding-window evaluation, each through its CLI.
+ISLES-2022 training with whole-volume evaluation, BraTS-2019 training
+with sliding-window evaluation, and the VNet's (`--model vnet`) Pancreas
+training and evaluation and ASPP's (`--use_aspp 1`) training, each through
+its CLI.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -111,11 +113,36 @@ Phases, each timed on its own line:
      --axial 0 and --axial 1 (8 K1 launches per forward chunk), its label
      maps against the plain (NDHWC) engine's with the same weights (>=
      99.99 % of voxels agree); vols/s;
- 21. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 21. k1_vnet: K1 forward, dx and K1-dW at the 6 VNet training shapes
+     (`--model vnet`, Pancreas defaults: patch 112x112x96, B = TRAIN_BATCH;
+     enc0 is K1's L_in = 8 instance in the VALID direction, to_phase 0), the
+     gates of 4, 6 and 5; NaN through FoldedConv3Fn at enc0 (forward: its
+     input is the image, so no dx) and at enc1.conv1 (forward and dx);
+ 22. vnet_model: the folded VNet (through K1, 6 launches a forward) against
+     the plain (NDHWC) VNet on one eval patch batch with the same weights,
+     eval mode, within tests/test_vnet_folded.py's tolerances: seg and sdf
+     atol 5e-4 + rtol 5e-4, features atol 1e-3 + rtol 1e-3;
+ 23. vnet_train: the Pancreas train CLI's Trainer with `--model vnet` at the
+     Pancreas defaults on phase 14's tree, 4 steps and a resume to 6 as in
+     14, with 12 + 5 K1 and 6 K1-dW launches a step; the run directory
+     VNET_..., the best checkpoint vnet_best_model.pt;
+ 24. vnet_eval: the Pancreas test CLI with `--model vnet` on that best
+     checkpoint (2 volumes, 18 patches each at stride 16/4: 6 K1 launches per
+     forward chunk), its label maps (before the largest-component step)
+     against the plain (NDHWC) VNet's sliding window with the same weights
+     (>= 99.99 % of voxels agree); vols/s;
+ 25. aspp_train: the Pancreas train CLI's Trainer with `--use_aspp 1`, 2
+     steps and a resume to 3 (16 + 7 K1 and 8 K1-dW a step), finite
+     losses; the checkpoint holds ASPP's parameters and running stats, and
+     the resume restores them exactly;
+ 26. step_vs_cpu_vnet: phase 8's check in its "vnet" case (the VNet,
+     folded, BatchNorm in train mode: 12 + 5 K1 and 6 K1-dW on the card)
+     and its "aspp" case (the UNet3D with ASPP, patch (32, 32, 32));
+ 27. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
-     training), each
+     training, K1 forward, dx and K1-dW in VNet training), each
      with that path's launch count and the sums over its shapes; then
      `{"ok": true, "device": {...}}` last.
 
@@ -194,6 +221,19 @@ ISLES_TRAIN_CASES, ISLES_VAL_CASES = 50, 2  # labelnum 10 = 45 labeled volumes, 
 # folded path runs) and above 96 on every axis (the windowed read runs)
 BRATS_STORED = (128, 112, 100)
 BRATS_TRAIN_CASES, BRATS_VAL_CASES = 30, 2  # labelnum 25: 25 labeled, 5 not
+# the VNet (--model vnet) at the Pancreas training defaults (patch 112x112x96,
+# B = TRAIN_BATCH): its six folded convs. The input is folded at phase 1, so
+# enc0 runs K1's L_in = 8 instance in the VALID direction (to_phase 0); enc0
+# has no dx (its input is the image)
+VNET_TRAIN_SHAPES = [
+    ("enc0.conv0", (57, 57, 49), 8, 128, 0), ("enc1.conv0", (28, 28, 24), 256, 256, 1),
+    ("enc1.conv1", (29, 29, 25), 256, 256, 0), ("dec2.conv0", (28, 28, 24), 256, 256, 1),
+    ("dec2.conv1", (29, 29, 25), 256, 256, 0), ("dec3.conv0", (56, 56, 48), 128, 128, 1),
+]
+# K1 forward (student + teacher), K1 dx and K1-dW launches of one train step
+UNET_STEP_LAUNCHES = dict(k1=16, k1_dx=7, k1_dw=8)
+VNET_STEP_LAUNCHES = dict(k1=12, k1_dx=5, k1_dw=6)
+ASPP_STEPS, ASPP_RESUME_STEPS = 2, 3
 FECL_D = 256
 K2_SOURCE = "dycon_paper_replication_tpu_torch/ops/csrc/fecl_fused.cu"
 K2_REPLACES = "dycon_paper_replication_tpu/ops/fecl_fused.py:66 (_build: core / core_bwd)"
@@ -311,7 +351,8 @@ def phase_nan(torch, device, gen, shape):
     the outputs that a NaN voxel of x reaches, and dx at exactly the voxels
     that a NaN voxel of the cotangent reaches (each reach counted by a conv
     of the NaN indicator with a 2^3 box of ones; every lane of wf is
-    nonzero)."""
+    nonzero). At L_in = 8 (a first conv, whose input is the image) only the
+    forward: the model never asks for that dx."""
     import torch.nn.functional as F
 
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import FoldedConv3Fn
@@ -332,11 +373,14 @@ def phase_nan(torch, device, gen, shape):
     x = with_nans(torch.randn(TRAIN_BATCH, *g, lin, device=device, generator=gen))
     wf = torch.randn(2, 2, 2, lin, lout, device=device, generator=gen) / math.sqrt(8 * lin)
     cot = with_nans(torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen))
-    xr = x.clone().requires_grad_()
+    with_dx = lin != 8
+    xr = x.clone().requires_grad_(with_dx)
     y = FoldedConv3Fn.apply(xr, wf, to_phase)
-    y.backward(cot)
+    if with_dx:
+        y.backward(cot)
     torch.cuda.synchronize()
-    for name, got, src, phase in (("y", y, x, to_phase), ("dx", xr.grad, cot, 1 - to_phase)):
+    checks = [("y", y, x, to_phase)] + ([("dx", xr.grad, cot, 1 - to_phase)] if with_dx else [])
+    for name, got, src, phase in checks:
         want = reach(src, phase).expand_as(got)
         n_nan = int(want.sum().item()) // got.shape[-1]
         print(f"nan {layer} {name}: {n_nan} voxels reached by {int(torch.isnan(src).sum())} "
@@ -492,7 +536,8 @@ def phase_step_vs_cpu(torch, device, config="pancreas"):
     """One train step on the card against the same step on the CPU from
     equal states, the CPU step taking the card's side at kinks within the
     margin (train/device_check.py: the cases, the margin and the
-    tolerances). The ISLES case runs the fused FeCL: one K2 call each way."""
+    tolerances). The ISLES case runs the fused FeCL: one K2 call each way;
+    the VNet case 12 + 5 K1 and 6 K1-dW launches."""
     from dycon_paper_replication_tpu_torch.ops.fecl_fused import fecl_bwd, fecl_fwd
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3, folded_conv3_dw, folded_conv3_dx)
@@ -500,7 +545,8 @@ def phase_step_vs_cpu(torch, device, config="pancreas"):
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
 
     counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw, fecl_fwd, fecl_bwd)
-    want = [16, 7, 8] + ([1, 1] if config == "isles22" else [0, 0])
+    per_step = VNET_STEP_LAUNCHES if config == "vnet" else UNET_STEP_LAUNCHES
+    want = list(per_step.values()) + ([1, 1] if config == "isles22" else [0, 0])
     before = [c.launches for c in counters]
     diffs, scalars, worst, sides = check_step(device, config=config)
     ran = [c.launches - n for c, n in zip(counters, before)]
@@ -738,16 +784,17 @@ def phase_eval(torch, nets, tmp):
     return launches
 
 
-def _drive_trainer(torch, dataset, argv, counters, want, tag):
+def _drive_trainer(torch, dataset, argv, counters, want, tag, n_steps=TRAIN_STEPS,
+                   n_resume=RESUME_STEPS):
     """The train CLI's Trainer for `dataset`: `argv` + --max_iterations
-    TRAIN_STEPS, then a resume from the step-TRAIN_STEPS checkpoint to
-    RESUME_STEPS, which must start from exactly the saved state. Every step
-    runs with each counter of `counters` ({name: wrapper}) set to 0 before
-    it and read after it, and must launch `want` ({name: count}), with
-    finite scalars and no skip. Returns the launch sums, ms per step (the
-    median of steps 2..TRAIN_STEPS), peak memory, the validation times and
-    the first run's snapshot path and the diagnostic outputs of its last
-    step."""
+    n_steps, then a resume from the step-n_steps checkpoint to n_resume,
+    which must start from exactly the saved state. Every step runs with
+    each counter of `counters` ({name: wrapper}) set to 0 before it and read
+    after it, and must launch `want` ({name: count}), with finite scalars
+    and no skip. Returns the launch sums, ms per step (the median of steps
+    2..n_steps), peak memory, the validation times, the first run's
+    snapshot path, the names of the saved state's tensors, and the
+    diagnostic outputs of the last step."""
     from dycon_paper_replication_tpu_torch.config import config_from_args
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
     from dycon_paper_replication_tpu_torch.train.trainer import Trainer
@@ -786,11 +833,11 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag):
         return trainer
 
     torch.cuda.reset_peak_memory_stats()
-    first = trainer_for(["--max_iterations", str(TRAIN_STEPS)])
+    first = trainer_for(["--max_iterations", str(n_steps)])
     first.run()
-    _check(first.state.step == TRAIN_STEPS, f"{tag}: step {first.state.step} after the first run")
-    saved = checkpoint.iter_checkpoint_path(first.snapshot_path, TRAIN_STEPS)
-    for n in range(2, TRAIN_STEPS + 1, 2):
+    _check(first.state.step == n_steps, f"{tag}: step {first.state.step} after the first run")
+    saved = checkpoint.iter_checkpoint_path(first.snapshot_path, n_steps)
+    for n in range(2, n_steps + 1, 2):
         path = checkpoint.iter_checkpoint_path(first.snapshot_path, n)
         _check(os.path.isfile(path), f"no checkpoint {path}")
     print(f"{tag} checkpoints:", sorted(os.listdir(first.snapshot_path)))
@@ -800,29 +847,30 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag):
     snapshot = first.snapshot_path
     del first
 
-    second = trainer_for(["--max_iterations", str(RESUME_STEPS), "--resume", saved])
+    second = trainer_for(["--max_iterations", str(n_resume), "--resume", saved])
     got = {**{f"student.{k}": v for k, v in second.state.student.state_dict().items()},
            **{f"teacher.{k}": v for k, v in second.state.teacher.state_dict().items()},
            **{f"momentum.{k}": v for k, v in second.state.momentum.items()}}
-    _check(second.state.step == TRAIN_STEPS, f"{tag}: resumed at step {second.state.step}")
+    _check(second.state.step == n_steps, f"{tag}: resumed at step {second.state.step}")
     _check(got.keys() == want_state.keys()
            and all(torch.equal(got[k].cpu(), want_state[k]) for k in want_state),
            f"{tag}: the resumed state differs from the saved one")
     second.run()
-    _check(second.state.step == RESUME_STEPS, f"{tag}: step {second.state.step} after the resume")
+    _check(second.state.step == n_resume, f"{tag}: step {second.state.step} after the resume")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     del second
 
-    _check(len(steps) == RESUME_STEPS, f"{tag}: {len(steps)} steps ran")
+    _check(len(steps) == n_resume, f"{tag}: {len(steps)} steps ran")
     for i, row in enumerate(steps):
         ran = {k: row[k] for k in counters}
         _check(ran == want, f"{tag} step {i + 1}: launches {ran}, want {want}")
         _check(all(math.isfinite(row[k]) for k in SCALAR_METRICS) and not row["skipped"],
                f"{tag} step {i + 1}: {row}")
-    ms_step = statistics.median(r["ms"] for r in steps[1:TRAIN_STEPS])
+    ms_step = statistics.median(r["ms"] for r in steps[1:n_steps])
     return dict(launches={k: sum(r[k] for r in steps) for k in counters}, ms_per_step=ms_step,
                 all_ms=[round(r["ms"], 3) for r in steps], peak_gib=peak_gb, val_s=val_s,
-                snapshot=snapshot, diag=diags[0] if diags else None)
+                snapshot=snapshot, state_keys=sorted(want_state),
+                diag=diags[0] if diags else None)
 
 
 def phase_train(torch, tmp):
@@ -840,14 +888,13 @@ def phase_train(torch, tmp):
     argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, "train_runs"),
             "--device", "cuda", "--val_every", "2", "--save_every", "2"]
     counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw)
-    out = _drive_trainer(torch, "pancreas", argv, counters, dict(k1=16, k1_dx=7, k1_dw=8),
-                         "train")
+    out = _drive_trainer(torch, "pancreas", argv, counters, UNET_STEP_LAUNCHES, "train")
     n_val = 2
     print(f"train: {RESUME_STEPS} steps, {out['ms_per_step']:.3f} ms per step (median of steps "
           f"2-{TRAIN_STEPS}; all: {out['all_ms']}), peak memory {out['peak_gib']:.3f} GiB, "
           f"validation {[round(v, 3) for v in out['val_s']]} s for {n_val} volumes = "
           f"{n_val / float(np.median(out['val_s'])):.4f} vols/s (median)")
-    return out
+    return dict(out, root=root)
 
 
 def phase_isles_train(torch, tmp):
@@ -1095,6 +1142,145 @@ def phase_brats_eval(torch, device, brats):
     return out
 
 
+def phase_vnet_model(torch, device, gen):
+    """The folded VNet (through K1: 6 launches a forward) against the plain
+    (NDHWC) VNet with the same seed-0 weights on one eval patch batch, eval
+    mode, within tests/test_vnet_folded.py's tolerances."""
+    from dycon_paper_replication_tpu_torch import weights
+    from dycon_paper_replication_tpu_torch.models import VNet, VNetConfig
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+
+    sd = weights.jax_tree_to_state_dict(*weights.init_jax_tree(VNetConfig(), seed=SEED))
+    nets = {}
+    for layout in ("folded", "NDHWC"):
+        nets[layout] = VNet(VNetConfig(layout=layout)).to(device).eval()
+        nets[layout].load_state_dict(sd)
+    x = torch.rand(PATCH_BATCH, *PATCH, 1, device=device, generator=gen)
+    folded_conv3.launches = 0
+    with torch.inference_mode():
+        out_f = nets["folded"](x)
+        launches = folded_conv3.launches
+        out_p = nets["NDHWC"](x)
+    torch.cuda.synchronize()
+    _check(launches == 6 and folded_conv3.launches == 6, f"vnet_model: K1 launches {launches}, "
+           f"then {folded_conv3.launches - launches} in the plain forward")
+    for name, a, b, tol in zip(("sdf", "seg", "features"), out_f, out_p, (5e-4, 5e-4, 1e-3)):
+        excess = ((a - b).abs() - tol * b.abs()).max().item()
+        print(f"vnet_model {name}: max abs diff folded vs plain {(a - b).abs().max().item()} "
+              f"(max |plain| {b.abs().max().item()}), max(|diff| - {tol} |plain|) {excess}")
+        _check(bool(torch.isfinite(a).all()) and excess <= tol,
+               f"vnet_model {name}: folded differs from plain beyond atol {tol} + rtol {tol}")
+    _check(tuple(out_f[1].shape) == (PATCH_BATCH, *PATCH, 2), f"seg shape {tuple(out_f[1].shape)}")
+
+
+def phase_vnet_train(torch, tmp, root):
+    """The Pancreas train CLI's Trainer with --model vnet at the Pancreas
+    defaults on the tree `root` of phase_train: 4 steps and a resume to 6,
+    12 + 5 K1 and 6 K1-dW launches a step; the run directory is VNET_...
+    and holds vnet_best_model.pt."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    runs = os.path.join(tmp, "vnet_runs")
+    argv = ["--root_dir", root, "--snapshot_root", runs, "--device", "cuda", "--val_every", "2",
+            "--save_every", "2", "--model", "vnet"]
+    counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw)
+    out = _drive_trainer(torch, "pancreas", argv, counters, VNET_STEP_LAUNCHES, "vnet_train")
+    best = checkpoint.best_checkpoint_path(out["snapshot"], "vnet")
+    _check(os.path.basename(out["snapshot"]).startswith("VNET_") and os.path.isfile(best),
+           f"vnet_train: run directory {out['snapshot']}, best checkpoint {best}")
+    n_val = 2
+    print(f"vnet_train: {RESUME_STEPS} steps, {out['ms_per_step']:.3f} ms per step (median of "
+          f"steps 2-{TRAIN_STEPS}; all: {out['all_ms']}), peak memory {out['peak_gib']:.3f} GiB, "
+          f"validation {[round(v, 3) for v in out['val_s']]} s for {n_val} volumes = "
+          f"{n_val / float(np.median(out['val_s'])):.4f} vols/s (median)")
+    return dict(out, root=root, runs=runs)
+
+
+def phase_vnet_eval(torch, device, vnet):
+    """The Pancreas test CLI with --model vnet on the best checkpoint of the
+    first VNet training run: 6 K1 launches per forward chunk, its label maps
+    (before the largest-component step) against the plain (NDHWC) VNet's
+    sliding window with the same weights: >= 99.99 % of voxels agree."""
+    from dycon_paper_replication_tpu_torch.cli import test_pancreas
+    from dycon_paper_replication_tpu_torch.eval import (
+        SlidingWindowInference, compute_origins, iter_volumes)
+    from dycon_paper_replication_tpu_torch.models import VNet, VNetConfig
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    preds = []
+    real_map = SlidingWindowInference.map
+
+    def tee(self, volumes, **kwargs):
+        for item in real_map(self, volumes, **kwargs):
+            preds.append(item[0])
+            yield item
+
+    argv = ["--root_path", vnet["root"], "--snapshot_root", vnet["runs"], "--device", "cuda",
+            "--max_iterations", str(TRAIN_STEPS), "--model", "vnet"]
+    folded_conv3.launches = 0
+    with mock.patch.object(SlidingWindowInference, "map", tee):
+        t0 = time.perf_counter()
+        avg = test_pancreas.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches = folded_conv3.launches
+    chunks = math.ceil(len(compute_origins(TRAIN_VOLUME, PATCH, STRIDE_XY, STRIDE_Z)) / PATCH_BATCH)
+    print(f"vnet_eval: {len(preds)} volumes of {TRAIN_VOLUME}, {chunks} chunks each, K1 launches "
+          f"{launches}, cli wall {cli_s:.3f} s, {len(preds) / cli_s:.4f} vols/s; metrics "
+          f"{[float(v) for v in avg]}")
+    _check(len(preds) == 2 and launches == 6 * chunks * 2,
+           f"vnet_eval: {len(preds)} volumes, K1 launches {launches}")
+    _check(len(avg) == 4 and all(math.isfinite(v) for v in avg), f"metrics {avg}")
+    plain = VNet(VNetConfig(layout="NDHWC")).to(device).eval()
+    checkpoint.restore_checkpoint(checkpoint.best_checkpoint_path(vnet["snapshot"], "vnet"), plain)
+    sw_plain = SlidingWindowInference(plain, PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
+    with open(os.path.join(vnet["root"], "test1.list")) as f:
+        names = [line.strip() for line in f if line.strip()]
+    volumes = iter_volumes([os.path.join(vnet["root"], "Pancreas_data", n) for n in names])
+    for pred, (image, _) in zip(preds, volumes):
+        want, _ = sw_plain(image)
+        agree = float((pred == want).mean())
+        print(f"vnet_eval: label agreement folded (CLI) vs plain {agree:.7f}, shape {pred.shape}, "
+              f"foreground {int(pred.sum())} vs {int(want.sum())} voxels")
+        _check(pred.shape == TRAIN_VOLUME and agree >= 0.9999,
+               f"vnet_eval: label agreement {agree} < 0.9999")
+    return dict(vols_per_s=len(preds) / cli_s, k1_launches=launches)
+
+
+def phase_aspp_train(torch, tmp, root):
+    """The Pancreas train CLI's Trainer with --use_aspp 1 on the tree `root`:
+    ASPP_STEPS steps and a resume to ASPP_RESUME_STEPS (16 + 7 K1 and 8 K1-dW
+    a step, finite losses); the checkpoint holds ASPP's parameters and
+    running stats, and the resume restored them exactly (_drive_trainer
+    compares every tensor of the state)."""
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, "aspp_runs"), "--device",
+            "cuda", "--val_every", "2", "--save_every", "2", "--use_aspp", "1"]
+    counters = dict(k1=folded_conv3, k1_dx=folded_conv3_dx, k1_dw=folded_conv3_dw)
+    out = _drive_trainer(torch, "pancreas", argv, counters, UNET_STEP_LAUNCHES, "aspp_train",
+                         n_steps=ASPP_STEPS, n_resume=ASPP_RESUME_STEPS)
+    saved = torch.load(checkpoint.iter_checkpoint_path(out["snapshot"], ASPP_STEPS),
+                       map_location="cpu", weights_only=True)
+    aspp = sorted(k for k in saved["model"] if k.startswith("aspp."))
+    restored = [k for k in out["state_keys"] if ".aspp." in f".{k}"]
+    stats = sum(k.endswith((".mean", ".var")) for k in aspp)
+    print(f"aspp_train: {len(aspp)} ASPP tensors of the student in the checkpoint ({stats} running "
+          f"stats), {len(restored)} ASPP tensors of the state (student, teacher, momentum) "
+          f"restored; ms per step {out['all_ms']}, peak memory {out['peak_gib']:.3f} GiB")
+    _check(any(k.endswith(".mean") for k in aspp) and any(k.endswith(".w") for k in aspp)
+           and any(k.startswith("teacher.aspp.") for k in restored),
+           f"aspp_train: ASPP tensors {aspp}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1211,6 +1397,30 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_brats_eval(torch, device, brats)
         _phase("brats_eval", t0)
+        t0 = time.perf_counter()
+        k1_vnet_rows = phase_k1(torch, device, gen, peaks, VNET_TRAIN_SHAPES, TRAIN_BATCH,
+                                "k1_vnet")
+        dx_vnet_rows = phase_dx(torch, device, gen, peaks, VNET_TRAIN_SHAPES, "k1_dx_vnet")
+        dw_vnet_rows = phase_dw(torch, device, gen, peaks, VNET_TRAIN_SHAPES, "k1_dw_vnet")
+        phase_nan(torch, device, gen, VNET_TRAIN_SHAPES[0])
+        phase_nan(torch, device, gen, VNET_TRAIN_SHAPES[2])
+        _phase("k1_vnet", t0)
+        t0 = time.perf_counter()
+        phase_vnet_model(torch, device, gen)
+        _phase("vnet_model", t0)
+        t0 = time.perf_counter()
+        vnet = phase_vnet_train(torch, tmp, train["root"])
+        _phase("vnet_train", t0)
+        t0 = time.perf_counter()
+        phase_vnet_eval(torch, device, vnet)
+        _phase("vnet_eval", t0)
+        t0 = time.perf_counter()
+        phase_aspp_train(torch, tmp, train["root"])
+        _phase("aspp_train", t0)
+        t0 = time.perf_counter()
+        phase_step_vs_cpu(torch, device, "vnet")
+        phase_step_vs_cpu(torch, device, "aspp")
+        _phase("step_vs_cpu_vnet", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -1239,6 +1449,12 @@ def main() -> int:
                       brats["launches"]["k1_dx"], dx_brats_rows, bound="tf32x3"),
         _kernel_entry("folded_conv3_dw_brats", "brats_train", dw_src, dw_replaces,
                       brats["launches"]["k1_dw"], dw_brats_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_vnet", "vnet_train", k1_src, K1_REPLACES,
+                      vnet["launches"]["k1"], k1_vnet_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dx_vnet", "vnet_train", k1_src, dx_replaces,
+                      vnet["launches"]["k1_dx"], dx_vnet_rows, bound="tf32x3"),
+        _kernel_entry("folded_conv3_dw_vnet", "vnet_train", dw_src, dw_replaces,
+                      vnet["launches"]["k1_dw"], dw_vnet_rows, bound="tf32x3"),
     ]
     for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
                            ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):

@@ -26,7 +26,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--root_dir", type=str, default="../data/ISLES22")
     p.add_argument("--exp", type=str, default="ISLES22")
-    p.add_argument("--model", type=str, choices=["unet_3D"], default="unet_3D")
+    p.add_argument("--model", type=str, choices=["unet_3D", "vnet"], default="unet_3D")
+    p.add_argument("--use_aspp", type=int, default=0, choices=[0, 1],
+                   help="the checkpoint's UNet3D has ASPP (evaluation does not run it)")
     p.add_argument("--labelnum", type=int, default=10)
     p.add_argument("--temp", type=float, default=0.6)
     p.add_argument("--consistency_type", type=str, default="mse")
@@ -55,7 +57,7 @@ def main(argv=None) -> dict:
     )
     snapshot_path = cfg.snapshot_path()
     model = net_factory_3d(args.model, in_chns=args.in_ch, class_num=args.num_classes,
-                           scaler=args.feature_scaler, layout=layout,
+                           scaler=args.feature_scaler, use_aspp=args.use_aspp, layout=layout,
                            device=resolve_device(args.device))
     ckpt_path = checkpoint.best_checkpoint_path(snapshot_path, args.model)
     checkpoint.restore_checkpoint(ckpt_path, model)

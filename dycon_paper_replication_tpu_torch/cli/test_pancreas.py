@@ -1,7 +1,7 @@
 """Offline Pancreas-CT evaluation: load the best checkpoint of the
-flag-derived snapshot path, run the dense sliding-window protocol (patch
-96^3, stride_xy 16, stride_z 4) over the test list, print the per-case and
-average Dice/Jaccard/HD95/ASD table.
+flag-derived snapshot path (`--model unet_3D` or `vnet`), run the dense
+sliding-window protocol (patch 96^3, stride_xy 16, stride_z 4) over the
+test list, print the per-case and average Dice/Jaccard/HD95/ASD table.
 
 Counterpart of dycon_paper_replication_tpu/cli/test_pancreas.py, with the
 same flags plus `--device` (default cuda). Run as
@@ -23,7 +23,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--root_path", type=str, default="../data/Pancreas")
     p.add_argument("--exp", type=str, default="PancreasCT")
-    p.add_argument("--model", type=str, choices=["unet_3D"], default="unet_3D")
+    p.add_argument("--model", type=str, choices=["unet_3D", "vnet"], default="unet_3D")
+    p.add_argument("--use_aspp", type=int, default=0, choices=[0, 1],
+                   help="the checkpoint's UNet3D has ASPP (evaluation does not run it)")
     p.add_argument("--detail", type=int, default=1)
     p.add_argument("--nms", type=int, default=1)
     p.add_argument("--labelnum", type=int, default=12)
@@ -58,8 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def resolve_perf_flags(args) -> tuple[str, str, int]:
     """(compute_dtype, layout, patch_batch) for the device: float32, folded
-    and 4 patches per forward on cuda; float32, the plain layout and 2 on
-    the CPU."""
+    (unet_3D and vnet alike) and 4 patches per forward on cuda; float32, the
+    plain layout and 2 on the CPU."""
     on_cuda = args.device == "cuda"
     layout = args.layout if args.layout != "auto" else ("folded" if on_cuda else "NDHWC")
     patch_batch = args.patch_batch or (4 if on_cuda else 2)
@@ -80,7 +82,8 @@ def run_test(args, dataset: str, volume_iter) -> tuple:
     device = resolve_device(args.device)
     _, layout, patch_batch = resolve_perf_flags(args)
     model = net_factory_3d(args.model, in_chns=args.in_ch, class_num=cfg.num_classes,
-                           scaler=args.feature_scaler, layout=layout, device=device)
+                           scaler=args.feature_scaler, use_aspp=args.use_aspp, layout=layout,
+                           device=device)
     ckpt_path = checkpoint.best_checkpoint_path(snapshot_path, args.model)
     checkpoint.restore_checkpoint(ckpt_path, model)
     print(f"init weight from {ckpt_path}")

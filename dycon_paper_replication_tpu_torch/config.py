@@ -9,15 +9,18 @@ Fields dropped from the JAX config, by decision:
     transfer dtype) exist for the TPU's 16 GB HBM and its slow host link;
     the H100's 80 GB hold a Pancreas step without recomputation.
 Field added: `device` ("cuda" or "cpu"), the torch device of a run.
-`layout="auto"` resolves against the torch device: "folded" for unet_3D on
-CUDA, where the fold-2 conv is the hand-written kernel K1, and "NDHWC"
-elsewhere. The compute dtype on the card is float32.
+`layout="auto"` resolves against the torch device: "folded" for unet_3D and
+vnet on CUDA, where the fold-2 conv is the hand-written kernel K1, and
+"NDHWC" elsewhere. The compute dtype on the card is float32. `--model`
+takes unet_3D and vnet; `--use_aspp 1` puts ASPP on the UNet3D's
+bottleneck (the VNet takes none, as in the JAX factory). Snapshot paths and
+checkpoint names follow the model (VNET_..., vnet_best_model.pt).
 
 `build_parser` / `config_from_args` take the JAX package's flag names for
 what the port's trainer implements, plus `--device`, for the three datasets
 ("pancreas", "brats19", "isles22"). Refused by argparse rather than accepted
 and ignored:
-  * the flags of features not ported: VNet, ASPP, bf16, --remat,
+  * the flags of features not ported: bf16, --remat,
     --wire_dtype, and data parallelism (--data_parallel, and the
     reference's --gpu_ids / --use_ddp: ROADMAP Queue A item 7); the device
     is --device, so --gpu_id is refused too;
@@ -120,12 +123,12 @@ class TrainConfig:
     device: str = "cuda"  # cuda | cpu
 
     def resolved_layout(self, device: torch.device | str) -> str:
-        """The model layout for `device`: "auto" is "folded" for unet_3D on
-        CUDA and "NDHWC" otherwise."""
+        """The model layout for `device`: "auto" is "folded" for unet_3D and
+        vnet on CUDA (both have fold-2 engines) and "NDHWC" otherwise."""
         if self.layout != "auto":
             return self.layout
         on_cuda = torch.device(device).type == "cuda"
-        return "folded" if on_cuda and self.model == "unet_3D" else "NDHWC"
+        return "folded" if on_cuda and self.model in ("unet_3D", "vnet") else "NDHWC"
 
     def snapshot_path(self) -> str:
         """Hyperparameter-encoded run directory (the JAX package's two
@@ -191,12 +194,14 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=f"Training DyCON on {d.exp} (PyTorch/CUDA)")
     p.add_argument("--root_dir", type=str, default=d.root_dir)
     p.add_argument("--exp", type=str, default=d.exp)
-    p.add_argument("--model", type=str, choices=["unet_3D"], default=d.model)
+    p.add_argument("--model", type=str, choices=["unet_3D", "vnet"], default=d.model)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[0, 1])
     p.add_argument("--in_ch", type=int, default=d.in_ch)
     p.add_argument("--num_classes", type=int, default=d.num_classes)
     p.add_argument("--feature_scaler", type=int, default=d.feature_scaler)
+    p.add_argument("--use_aspp", type=int, default=int(d.use_aspp), choices=[0, 1],
+                   help="ASPP on the UNet3D's bottleneck before the projection head")
     p.add_argument("--patch_size", type=int, nargs=3, default=list(d.patch_size))
     p.add_argument("--max_iterations", type=int, default=d.max_iterations)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
@@ -240,6 +245,7 @@ def config_from_args(dataset: str, argv: Sequence[str] | None = None) -> TrainCo
     field_names = {f.name for f in dataclasses.fields(TrainConfig)}
     kw = {k: v for k, v in vars(args).items() if k in field_names}
     kw["patch_size"] = tuple(kw["patch_size"])
+    kw["use_aspp"] = bool(kw["use_aspp"])
     return make_config(dataset, **kw)
 
 

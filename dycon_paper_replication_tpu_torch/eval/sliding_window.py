@@ -12,7 +12,9 @@ On the device: the padded volume is placed once; patches are gathered in
 chunks of `patch_batch`, the origin list padded to whole chunks with
 ZERO-WEIGHT entries (they run through the model and add nothing); the
 overlap normaliser is a host-built float64 reciprocal count, applied as one
-multiply. With a 2-class folded UNet and all origins even, the whole
+multiply. With a 2-class folded model that has a folded-IO seg entry
+(`apply_seg_folded`: the UNet3D; the VNet has none and runs its patches
+through `forward`, which folds inside) and all origins even, the whole
 pipeline runs in fold-2 layout: the canvas is folded once, patches are
 folded slices, the foreground probability is sigmoid(l1 - l0) on the
 class-major lanes of the folded logits, and the score unfolds once. Any odd
@@ -51,7 +53,7 @@ def _round_up(n: int, m: int) -> int:
 
 class SlidingWindowInference:
     """Sliding-window engine for one (patch, strides) protocol over `model`,
-    a UNet3D in eval mode on its device.
+    a UNet3D or VNet in eval mode on its device.
 
     `label, score = sw(image)` with image a (D1, D2, D3) numpy volume gives
     numpy (D1, D2, D3) uint8 labels and float32 scores. `sw.map(volumes)`
@@ -70,7 +72,8 @@ class SlidingWindowInference:
 
     def _folded(self, origins: np.ndarray) -> bool:
         cfg = self.model.cfg
-        return (cfg.layout == "folded" and cfg.n_classes == 2
+        return (getattr(self.model, "apply_seg_folded", None) is not None
+                and cfg.layout == "folded" and cfg.n_classes == 2
                 and all(p % 16 == 0 for p in self.patch) and not (origins % 2).any())
 
     def _inv_cnt(self, true_shape, origins, folded: bool) -> torch.Tensor:

@@ -14,15 +14,30 @@ from torch import nn
 
 
 class Conv3d(nn.Module):
-    """Parameters of one 3-D conv: `w` (kd, kh, kw, Ci, Co) and bias `b` (Co,)."""
+    """Parameters of one 3-D conv: `w` (kd, kh, kw, Ci, Co) and bias `b` (Co,),
+    or no bias with `use_bias=False` (ASPP's convs, in front of a BatchNorm)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (3, 3, 3)):
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (3, 3, 3),
+                 use_bias: bool = True):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(*kernel, in_ch, out_ch))
+        self.b = nn.Parameter(torch.empty(out_ch)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d(x, self.w, self.b)
+
+
+class ConvTranspose3d(nn.Module):
+    """Parameters of one transposed 3-D conv, in the JAX package's layout:
+    `w` (kd, kh, kw, Ci, Co) and bias `b` (Co,). See conv_transpose3d."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (2, 2, 2)):
         super().__init__()
         self.w = nn.Parameter(torch.empty(*kernel, in_ch, out_ch))
         self.b = nn.Parameter(torch.empty(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d(x, self.w, self.b)
+        return conv_transpose3d(x, self.w, self.b)
 
 
 class BatchNorm(nn.Module):
@@ -48,12 +63,36 @@ class BatchNorm(nn.Module):
         return y
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """SAME-padded stride-1 3-D conv of (B, D1, D2, D3, Ci) with a DHWIO
-    kernel (odd sizes). F.conv3d reads the channels-last tensor through an
-    NCDHW view, which cuDNN takes as channels_last_3d."""
-    pad = tuple(k // 2 for k in w.shape[:3])
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, padding=pad)
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+           stride: int = 1, padding: str = "SAME", dilation: int = 1) -> torch.Tensor:
+    """3-D conv of (B, D1, D2, D3, Ci) with a DHWIO kernel: "SAME" (stride 1,
+    odd kernel sizes, zero pad dilation * (k - 1) / 2) or "VALID" padding,
+    the same stride and dilation on every axis. F.conv3d reads the
+    channels-last tensor through an NCDHW view, which cuDNN takes as
+    channels_last_3d."""
+    if padding == "SAME":
+        if stride != 1:
+            raise ValueError("conv3d: SAME padding takes stride 1 only")
+        pad = tuple(dilation * (k // 2) for k in w.shape[:3])
+    elif padding == "VALID":
+        pad = 0
+    else:
+        raise ValueError(f"conv3d: padding must be SAME or VALID, got {padding!r}")
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, stride=stride,
+                 padding=pad, dilation=dilation)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None) -> torch.Tensor:
+    """Transposed 3-D conv of (B, D1, D2, D3, Ci), stride 2, VALID, with the
+    JAX layer's kernel w (kd, kh, kw, Ci, Co): a kernel of 2 doubles every
+    spatial axis. The JAX layer is lax.conv_transpose with
+    transpose_kernel=False, which mirrors the kernel spatially against
+    F.conv_transpose3d: y[2i + p] = x[i] w[1 - p] where torch computes
+    x[i] w[p]. The flip is here, once; the weights keep the JAX layout."""
+    wt = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2)  # (Ci, Co, kd, kh, kw)
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt, b, stride=2)
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -94,7 +133,7 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    """torch.relu. Every ReLU of the UNet3D calls it here, so that the
+    """torch.relu. Every ReLU of the models calls it here, so that the
     card-against-CPU step check (train/device_check.py) can replace it."""
     return torch.relu(x)
 

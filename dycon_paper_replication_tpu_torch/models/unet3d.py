@@ -7,7 +7,8 @@ Counterpart of dycon_paper_replication_tpu/models/unet3d.py:
   heads:   `final` 1^3 conv + tanh   -> SDF map
            `out_conv2` 1^3 conv      -> segmentation logits
            projection: corner-aligned trilinear up(x scale_factor) of the
-           bottleneck -> 1^3 conv(512) -> BN -> ReLU -> 1^3 conv(256) -> BN
+           bottleneck (refined by ASPP with `use_aspp`, models/aspp.py)
+           -> 1^3 conv(512) -> BN -> ReLU -> 1^3 conv(256) -> BN
   filters: [64, 128, 256, 512, 1024] // feature_scale (4 -> 16..256)
 
 Inputs and outputs are channels-last float32. `cfg.layout` is "NDHWC" (the
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from . import layers
+from .aspp import ASPP3D
 from ..ops.resize import max_pool_2x, trilinear_resize, upsample2x
 
 
@@ -33,6 +35,7 @@ class UNet3DConfig:
     n_classes: int = 2
     feature_scale: int = 4
     scale_factor: int = 2  # projection-head upsample factor
+    use_aspp: bool = False
     dropout_rate: float = 0.3
     proj_hidden: int = 512
     proj_out: int = 256
@@ -86,13 +89,16 @@ class UNet3D(nn.Module):
         self.final = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
         self.out_conv2 = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
         self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out)
+        if cfg.use_aspp:
+            self.aspp = ASPP3D(f[4], f[4])
 
     def forward(self, x: torch.Tensor, *, with_projection: bool = True,
                 generator: torch.Generator | None = None):
         """x: (B, D1, D2, D3, in_channels), spatial dims divisible by 16.
         Returns (sdf, seg_logits, features), float32 channels-last;
         features is None with `with_projection=False`. Dropout applies only
-        in training mode with a generator."""
+        in training mode with a generator: the centre's draw, the last
+        decoder map's, then ASPP's (with `use_aspp`)."""
         if self.cfg.layout == "folded":
             from .unet3d_folded import unet3d_apply_folded
 
@@ -113,7 +119,8 @@ class UNet3D(nn.Module):
         h = layers.dropout(h, self.cfg.dropout_rate, generator, train)
         sdf = torch.tanh(self.final(h))
         seg = self.out_conv2(h)
-        features = projection_head(self, center) if with_projection else None
+        features = (projection_head(self, center, generator=generator) if with_projection
+                    else None)
         return sdf, seg, features
 
     def apply_seg_folded(self, xf: torch.Tensor) -> torch.Tensor:
@@ -124,10 +131,16 @@ class UNet3D(nn.Module):
         return unet3d_seg_folded_io(self, xf)
 
 
-def projection_head(net: UNet3D, center: torch.Tensor) -> torch.Tensor:
-    """Corner-aligned upsample + conv-BN-ReLU-conv-BN of the bottleneck. In
+def projection_head(net, center: torch.Tensor,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """ASPP (where `net` has one) + corner-aligned upsample +
+    conv-BN-ReLU-conv-BN of the bottleneck; the UNet3D's and the VNet's. In
     training mode the BatchNorms use the batch statistics and update their
-    running stats (the JAX head's new BN state)."""
+    running stats (the JAX head's new BN state), and ASPP's dropout draws
+    from `generator`."""
+    aspp = getattr(net, "aspp", None)
+    if aspp is not None:
+        center = aspp(center, generator=generator)
     p = net.projection
     target = tuple(s * net.cfg.scale_factor for s in center.shape[1:4])
     proj = trilinear_resize(center, target, align_corners=True)

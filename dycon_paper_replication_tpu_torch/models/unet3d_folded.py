@@ -100,5 +100,6 @@ def unet3d_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
     h, center = unet3d_trunk_folded(net, fold2(x), generator=generator)
     sdf = torch.tanh(unfold2(conv1x1_folded(h, net.final.w, net.final.b)).to(torch.float32))
     seg = unfold2(conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b)).to(torch.float32)
-    features = projection_head(net, center) if with_projection else None
+    features = (projection_head(net, center, generator=generator) if with_projection
+                else None)
     return sdf, seg, features

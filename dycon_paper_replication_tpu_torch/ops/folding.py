@@ -27,11 +27,18 @@ K1-dW backward), a CPU tensor to their plain versions. The gradient to the
 unfolded kernel and the bias flows through `fold_conv3_weights` and
 `fold_bias` by autograd, as the JAX package's `folded_conv3_via_pallas`
 does by JAX autodiff.
+
+The VNet's fold-2 ops (models/vnet_folded.py) sit beside the UNet's:
+`fold2_phase1` / `unfold2_phase1` (the input folded at phase 1, for conv
+stacks of odd length), the strided and transposed 2^3 resamplers, each one
+dense product per folded block, and `batch_norm_folded`. They are plain
+torch, as their JAX counterparts are plain XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import resize
 from .folded_conv_cuda import FoldedConv3Fn
@@ -192,3 +199,93 @@ def conv1x1_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> 
     if b is not None:
         y = y + fold_bias(b)
     return y
+
+
+def fold2_phase1(x: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) -> PHASE-1 folded (B, D/2+1, H/2+1, W/2+1, 8C).
+
+    Phase-1 block i holds positions (2i-1, 2i); positions -1 and D are zero
+    padding, so a phase-1 -> phase-0 (VALID) folded conv of this tensor is
+    the SAME-padded 3^3 conv. The input fold of conv stacks with an odd
+    number of convs (VNet's enc0 and dec3): every block boundary then lands
+    on phase 0, where the strided 2^3 resamplers consume blocks."""
+    return fold2(F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)))
+
+
+def unfold2_phase1(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of fold2_phase1: unfold and drop the boundary planes."""
+    return unfold2(x)[:, 1:-1, 1:-1, 1:-1, :]
+
+
+def strided_conv2_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
+                         fold_output: bool = True) -> torch.Tensor:
+    """2^3 stride-2 conv of a phase-0 folded tensor.
+
+    Stride-2 windows are exactly the phase-0 blocks, so the conv is one
+    dense (8Ci, Co) product per block. x (B, G1, G2, G3, 8Ci), w (2, 2, 2,
+    Ci, Co) DHWIO -> the half-resolution output (B, G1, G2, G3, Co), or
+    refolded phase-0 (B, G1/2, G2/2, G3/2, 8Co) with `fold_output`."""
+    ci = x.shape[-1] // _SUBS
+    # lane k = c * 8 + (qd * 4 + qh * 2 + qw)  ->  W[(c, q), co] = w[q, c, co]
+    y = x @ w.permute(3, 0, 1, 2, 4).reshape(ci * _SUBS, -1)
+    if b is not None:
+        y = y + b
+    return fold2(y) if fold_output else y
+
+
+def transposed_conv2_to_folded(x: torch.Tensor, w: torch.Tensor,
+                               b: torch.Tensor | None) -> torch.Tensor:
+    """Transposed 2^3 stride-2 conv with FOLDED phase-0 output.
+
+    Each input voxel emits one whole 2x2x2 output block, one phase-0 folded
+    block: one dense (Ci, 8Co) product. x (B, g1, g2, g3, Ci) unfolded ->
+    (B, g1, g2, g3, 8Co), equal to fold2 of models/layers.conv_transpose3d.
+    Output sub-position p takes tap 1 - p: the JAX layer's
+    lax.conv_transpose (transpose_kernel=False) mirrors the kernel."""
+    ci = x.shape[-1]
+    y = x @ w.flip(0, 1, 2).permute(3, 4, 0, 1, 2).reshape(ci, -1)
+    if b is not None:
+        y = y + fold_bias(b)
+    return y
+
+
+def batch_norm_folded(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      mean: torch.Tensor, var: torch.Tensor, n_valid: int,
+                      masks: list[torch.Tensor] | None = None, *, train: bool,
+                      momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm over a folded (B, G1, G2, G3, 8C) tensor, with the numerics
+    of models/layers.batch_norm_train (train) and batch_norm (eval).
+
+    Statistics in float32 over batch and space, divided by the TRUE voxel
+    count B * `n_valid`, the variance in two passes; `masks`
+    (phase1_lane_masks) keep a phase-1 tensor's boundary planes out of both
+    passes and zero them on output, so the next folded conv reads zeros
+    there. Returns (y, new_mean, new_var): in train mode the running stats
+    moved by `momentum` towards the batch mean and the unbiased variance
+    (detached), in eval mode `mean` and `var` themselves."""
+    b, g1, g2, g3, l = x.shape
+    c = l // _SUBS
+    n = b * n_valid
+    xf = x.to(torch.float32)
+    if masks is not None:
+        for m in masks:
+            xf = xf * m
+    if train:
+        b_mean = xf.sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1) / n
+        cent = xf - b_mean.repeat_interleave(_SUBS)
+        if masks is not None:
+            for m in masks:
+                cent = cent * m
+        b_var = cent.square().sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1) / n
+        unbiased = b_var.detach() * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * mean + momentum * b_mean.detach()
+        new_var = (1 - momentum) * var + momentum * unbiased
+    else:
+        b_mean, b_var, new_mean, new_var = mean, var, mean, var
+    k = torch.rsqrt(b_var + eps) * scale
+    shift = bias - b_mean * k
+    y = x.to(torch.float32) * k.repeat_interleave(_SUBS) + shift.repeat_interleave(_SUBS)
+    if masks is not None:
+        for m in masks:
+            y = y * m
+    return y.to(x.dtype), new_mean, new_var

@@ -6,7 +6,8 @@ coordinate conventions:
         src = (dst + 0.5) * in / out - 0.5, clamped at 0;
   * align_corners=True (the projection head):  src = dst * (in-1) / (out-1).
 Source indices are clamped to the valid range. Also the 2x max pool and the
-non-overlapping average pool of the FeCL mask.
+non-overlapping average pool of the FeCL mask, and ASPP's global average
+pool.
 """
 
 from __future__ import annotations
@@ -81,3 +82,9 @@ def avg_pool_nonoverlap(x: torch.Tensor, kernel: tuple[int, int, int]) -> torch.
     o1, o2, o3 = d1 // k1, d2 // k2, d3 // k3
     x = x[:, :o1 * k1, :o2 * k2, :o3 * k3]
     return x.reshape(b, o1, k1, o2, k2, o3, k3).mean(dim=(2, 4, 6))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Adaptive (1, 1, 1) average pool over the spatial axes of
+    (B, D1, D2, D3, C), keeping them: (B, 1, 1, 1, C)."""
+    return x.mean(dim=(1, 2, 3), keepdim=True)

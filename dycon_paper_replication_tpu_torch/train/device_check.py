@@ -8,18 +8,32 @@ version. `check_step(device, config=...)` runs both and returns what differs
 beyond the tolerances below, one line per leaf (empty when all agree).
 `chip_smoke.py` and tests/test_torch_cuda.py run it on the card.
 
-The cases. Both are a full-width UNet3D (feature_scale 4, filters 16..256),
-folded, dropout 0; patch (32, 32, 16), batch 4 of which 2 labeled; the
-teacher noise drawn with numpy and handed to both steps. The state has the
-student from `seed`, a teacher from seed + 1 and step 1, so the EMA mixes
-two different nets with alpha 0.5; the momentum starts at zero.
-  * "pancreas": tests/test_torch_train_step.py's case, the Pancreas step
-    config (dense FeCL over N = 4 x 4 x 2 = 32 at projection scale 2);
-  * "isles22": the ISLES step config (teacher in eval mode, n-class Dice,
-    the derived mask kernel, projection scale 4, so N = 8 x 8 x 4 = 256)
-    with fecl_chunk 96: the fused FeCL runs K2 on the card (4 row tiles of
-    64) and the twin on the CPU (3 tiles of 96, the last padded); its
-    neg_thresh is 0.05 (SCALARS_ISLES), so that the cross term has pairs.
+The cases. Each is a full-width model, folded, dropout 0; patch
+(32, 32, 16), batch 4 of which 2 labeled; the teacher noise drawn with
+numpy and handed to both steps. The state has the student from `seed`, a
+teacher from seed + 1 and step 1, so the EMA mixes two different nets with
+alpha 0.5; the momentum starts at zero.
+  * "pancreas": tests/test_torch_train_step.py's case, a UNet3D
+    (feature_scale 4, filters 16..256) under the Pancreas step config
+    (dense FeCL over N = 4 x 4 x 2 = 32 at projection scale 2);
+  * "isles22": the UNet3D under the ISLES step config (teacher in eval mode,
+    n-class Dice, the derived mask kernel, projection scale 4, so
+    N = 8 x 8 x 4 = 256) with fecl_chunk 96: the fused FeCL runs K2 on the
+    card (4 row tiles of 64) and the twin on the CPU (3 tiles of 96, the
+    last padded); its neg_thresh is 0.05 (SCALARS_ISLES), so that the cross
+    term has pairs;
+  * "vnet": the VNet (n_filters 16, filters 16..256; six folded convs, K1,
+    K1 dx and K1-dW on the card, every norm a BatchNorm in train mode)
+    under the Pancreas step config;
+  * "aspp": the UNet3D with ASPP on its bottleneck under the Pancreas step
+    config, at patch (32, 32, 32). ASPP's five BatchNorms take statistics
+    over the centre of the batch: at (32, 32, 16) that is 2 x 2 x 1 x 4 = 16
+    values, and under the noise below the running means of projection.bn1
+    and aspp.fuse_bn moved by 1.8-3.3x their tolerance at seeds 0-3 (the
+    parameters and momentum by at most 0.64x); at (32, 32, 32), 32 values,
+    by at most 0.87x (tests/test_torch_device_check.py). ASPP's own dropout
+    (rate 0.5, fixed, as in the JAX layer) draws its masks with numpy in
+    call order, the same on both steps (`shared_dropout`).
 
 Kink sides. A step has kinks: its ReLUs, its max pools (which of a
 block's 8 values is the largest) and FeCL's cross threshold
@@ -70,12 +84,13 @@ import torch
 
 from .. import weights
 from ..config import TrainConfig, make_config
-from ..models import UNet3D, UNet3DConfig, layers
+from ..models import UNet3DConfig, VNetConfig, build_model, layers
 from ..ops import dycon, fecl_fused, resize
 from .state import TrainState, create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
 
 PATCH = (32, 32, 16)
+PATCHES = {"aspp": (32, 32, 32)}  # the module doc says why
 BATCH, LABELED = 4, 2
 SCALARS = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
 # the ISLES case's neg_thresh: cs between these two random nets' embeddings
@@ -83,24 +98,33 @@ SCALARS = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
 # term empty; at 0.05 about a quarter of all pairs are hard negatives
 SCALARS_ISLES = SCALARS._replace(neg_thresh=0.05)
 CPU = torch.device("cpu")
-CONFIGS = ("pancreas", "isles22")
+CONFIGS = ("pancreas", "isles22", "vnet", "aspp")
 ISLES_FECL_CHUNK = 96
 KINK_MARGIN = 1e-2
 
 
 def step_config(device: torch.device, config: str = "pancreas") -> TrainConfig:
-    extra = dict(fecl_chunk=ISLES_FECL_CHUNK) if config == "isles22" else {}
-    return make_config(config, patch_size=PATCH, batch_size=BATCH, labeled_bs=LABELED,
-                       device=torch.device(device).type, **extra)
+    if config not in CONFIGS:
+        raise ValueError(f"config {config!r} is not one of {CONFIGS}")
+    extra = {"isles22": dict(fecl_chunk=ISLES_FECL_CHUNK), "vnet": dict(model="vnet"),
+             "aspp": dict(use_aspp=True)}.get(config, {})
+    return make_config("isles22" if config == "isles22" else "pancreas",
+                       patch_size=PATCHES.get(config, PATCH),
+                       batch_size=BATCH, labeled_bs=LABELED, device=torch.device(device).type,
+                       **extra)
 
 
 def initial_state(seed: int, config: str = "pancreas") -> TrainState:
     """The CPU state of the module doc."""
-    cfg = UNet3DConfig(layout="folded", dropout_rate=0.0,
-                       scale_factor=step_config(CPU, config).feature_scaler)
+    scale = step_config(CPU, config).feature_scaler
+    if config == "vnet":
+        cfg = VNetConfig(layout="folded", dropout_rate=0.0, scale_factor=scale)
+    else:
+        cfg = UNet3DConfig(layout="folded", dropout_rate=0.0, scale_factor=scale,
+                           use_aspp=config == "aspp")
     nets = []
     for s in (seed, seed + 1):
-        net = UNet3D(cfg)
+        net = build_model(cfg)
         net.load_state_dict(weights.jax_tree_to_state_dict(*weights.init_jax_tree(cfg, s)))
         nets.append(net)
     state = create_train_state(nets[0])
@@ -109,15 +133,33 @@ def initial_state(seed: int, config: str = "pancreas") -> TrainState:
     return state
 
 
-def make_inputs(seed: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
-    """A batch of ellipsoid labels with a noisy image, and the teacher noise
-    clip(0.1 N(0, 1), +-0.2), from `seed`."""
+@contextlib.contextmanager
+def shared_dropout(seed: int):
+    """models/layers.dropout drawing its keep masks with numpy from `seed`,
+    in call order, where the layer would draw from its generator: the same
+    masks on any device."""
     rng = np.random.default_rng(seed)
-    grid = np.stack(np.meshgrid(*[np.arange(s) for s in PATCH], indexing="ij"), -1)
+
+    def dropout(x, rate, generator, train):
+        if not train or rate == 0.0 or generator is None:
+            return x
+        keep = torch.from_numpy(rng.random(tuple(x.shape)) < 1.0 - rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    with mock.patch.object(layers, "dropout", dropout):
+        yield
+
+
+def make_inputs(seed: int, config: str = "pancreas") -> tuple[dict[str, np.ndarray], np.ndarray]:
+    """A batch of ellipsoid labels with a noisy image at the case's patch,
+    and the teacher noise clip(0.1 N(0, 1), +-0.2), from `seed`."""
+    rng = np.random.default_rng(seed)
+    patch = PATCHES.get(config, PATCH)
+    grid = np.stack(np.meshgrid(*[np.arange(s) for s in patch], indexing="ij"), -1)
     labels = []
     for _ in range(BATCH):
-        center = rng.uniform(0.3, 0.7, 3) * PATCH
-        radii = rng.uniform(0.3, 0.5, 3) * PATCH
+        center = rng.uniform(0.3, 0.7, 3) * patch
+        radii = rng.uniform(0.3, 0.5, 3) * patch
         labels.append((((grid - center) / radii) ** 2).sum(-1) <= 1.0)
     label = np.stack(labels).astype(np.int32)
     image = (0.4 * label + 0.1 * rng.standard_normal(label.shape)).astype(np.float32)[..., None]
@@ -145,8 +187,10 @@ def run_step(state: TrainState, batch: dict[str, np.ndarray], noise: np.ndarray,
 
 
 def _normalised_bias(key: str) -> bool:
-    """The bias of a conv followed by an InstanceNorm or BatchNorm."""
-    return key.endswith(".b") and not key.startswith(("final.", "out_conv2."))
+    """The bias of a conv followed by an InstanceNorm or BatchNorm: all but
+    the heads' (UNet3D final, out_conv2; VNet out_conv, out_conv_sdf)."""
+    return key.endswith(".b") and not key.startswith(("final.", "out_conv2.", "out_conv.",
+                                                      "out_conv_sdf."))
 
 
 def comparisons(got: TrainState, got_scalars: np.ndarray, want: TrainState,
@@ -338,13 +382,13 @@ def check_step(device: torch.device | str, seed: int = 0, config: str = "pancrea
     `worst_by_group` of all comparisons; `KinkSides.counts`)."""
     device = torch.device(device)
     state = initial_state(seed, config)
-    batch, noise = make_inputs(seed)
+    batch, noise = make_inputs(seed, config)
     sides = KinkSides()
     got = state_on(state, device)
-    with sides.record(), device_context():
+    with sides.record(), shared_dropout(seed), device_context():
         got_scalars = run_step(got, batch, noise, device, config)
     want = state_on(state, CPU)
-    with sides.share():
+    with sides.share(), shared_dropout(seed):
         want_scalars = run_step(want, batch, noise, CPU, config)
     lr = step_config(device, config).base_lr
     label = batch["label"]

@@ -7,8 +7,9 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
     prefetching loader;
   * the host schedules: per epoch beta and the FeCL focal thresholds, per
     iteration the consistency weight;
-  * the step (train/step.py) on the device, one sync per step for its
-    scalars, timed by a StepTimer;
+  * the model by `model` (unet_3D, with ASPP under `use_aspp`, or vnet),
+    student and teacher of the same build; the step (train/step.py) on the
+    device, one sync per step for its scalars, timed by a StepTimer;
   * train-HD95 every `hd95_every = max(val_every // 4, 1)` iterations and at
     the first, over the whole batch against its labels (max_dist = the
     patch diagonal for an empty mask): the step's foreground mask is copied
@@ -68,7 +69,7 @@ from ..eval import (
     var_all_case,
     var_all_case_wholevolume,
 )
-from ..models import UNet3D, UNet3DConfig
+from ..models import build_model, model_config
 from ..ops import metrics, ramps
 from ..utils import checkpoint
 from ..utils.logging import ExperimentLogger
@@ -136,11 +137,11 @@ class Trainer:
         if not os.path.exists(code):
             copy_package(code)
 
-        net_cfg = UNet3DConfig(in_channels=cfg.in_ch, n_classes=cfg.num_classes,
-                               scale_factor=cfg.feature_scaler,
+        net_cfg = model_config(cfg.model, in_chns=cfg.in_ch, class_num=cfg.num_classes,
+                               scaler=cfg.feature_scaler, use_aspp=cfg.use_aspp,
                                layout=cfg.resolved_layout(self.device))
         params, state = weights.init_jax_tree(net_cfg, seed=cfg.seed)
-        student = UNet3D(net_cfg).to(self.device)
+        student = build_model(net_cfg).to(self.device)
         student.load_state_dict(weights.jax_tree_to_state_dict(params, state))
         self.state = create_train_state(student)
         self.best_performance = 0.0

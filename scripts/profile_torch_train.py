@@ -8,10 +8,12 @@ fused FeCL over N = 9216 through K2), random weights and a synthetic batch
 from a seed.
 
     python3 scripts/profile_torch_train.py [--config pancreas|brats19|isles22] [--reps 3]
-        [--layout folded|NDHWC] [--trace_dir DIR]
+        [--layout folded|NDHWC] [--model unet_3D|vnet] [--use_aspp 0|1] [--trace_dir DIR]
 
 `--layout` picks the model layout (default: the config's, "folded" on
 CUDA); NDHWC runs every level through cuDNN and never reaches K1.
+`--model vnet` profiles the VNet (n_filters 16, BatchNorm throughout, six
+folded convs), `--use_aspp 1` the UNet3D with ASPP on its bottleneck.
 
 It prints the wall ms per step (host clock around steps that end in a
 device sync, median of --reps after 2 warm-up steps), the peak device
@@ -50,9 +52,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layout", choices=("folded", "NDHWC"), default=None)
     ap.add_argument("--config", choices=("pancreas", "brats19", "isles22"), default="pancreas")
+    ap.add_argument("--model", choices=("unet_3D", "vnet"), default="unet_3D")
+    ap.add_argument("--use_aspp", type=int, choices=(0, 1), default=0)
     ap.add_argument("--d2h_reps", type=int, default=20)
     ap.add_argument("--trace_dir", default=None,
-                    help="default runs/profile_torch_train_<config>_<layout>")
+                    help="default runs/profile_torch_train_<config>[_vnet][_aspp]_<layout>")
     args = ap.parse_args()
 
     import numpy as np
@@ -60,7 +64,7 @@ def main() -> int:
 
     from dycon_paper_replication_tpu_torch import weights
     from dycon_paper_replication_tpu_torch.config import make_config, resolve_device
-    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+    from dycon_paper_replication_tpu_torch.models import build_model, model_config
     from dycon_paper_replication_tpu_torch.ops.bits import packbits_le, unpackbits_le
     from dycon_paper_replication_tpu_torch.ops.metrics import compute_hd95_batch
     from dycon_paper_replication_tpu_torch.train.state import create_train_state
@@ -70,11 +74,11 @@ def main() -> int:
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = make_config(args.config, device="cuda")
-    net_cfg = UNet3DConfig(layout=args.layout or cfg.resolved_layout(device),
-                           scale_factor=cfg.feature_scaler)
+    cfg = make_config(args.config, device="cuda", model=args.model, use_aspp=bool(args.use_aspp))
+    net_cfg = model_config(args.model, scaler=cfg.feature_scaler, use_aspp=cfg.use_aspp,
+                           layout=args.layout or cfg.resolved_layout(device))
     params, state = weights.init_jax_tree(net_cfg, seed=args.seed)
-    student = UNet3D(net_cfg).to(device)
+    student = build_model(net_cfg).to(device)
     student.load_state_dict(weights.jax_tree_to_state_dict(params, state))
     train_state = create_train_state(student)
     step = build_train_step(cfg, lambda s: cfg.base_lr)
@@ -106,15 +110,16 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    trace_dir = args.trace_dir or os.path.join(
-        "runs", f"profile_torch_train_{args.config}_{net_cfg.layout}")
+    tag = args.config + ("_vnet" if args.model == "vnet" else "") + (
+        "_aspp" if args.use_aspp else "")
+    trace_dir = args.trace_dir or os.path.join("runs", f"profile_torch_train_{tag}_{net_cfg.layout}")
     with trace(trace_dir) as prof:
         for _ in range(args.reps):
             diag = run()
     by_cat, kernels = device_ms_by_category(prof, args.reps)
     busy = sum(by_cat.values())
     idle = max(0.0, 1 - busy / wall_ms)
-    print(f"train step ({args.config}, {net_cfg.layout}): wall {wall_ms:.3f} ms (all "
+    print(f"train step ({tag}, {net_cfg.layout}): wall {wall_ms:.3f} ms (all "
           f"{[round(w, 3) for w in walls]}), device busy {busy:.3f} ms, idle share {idle:.3f}, "
           f"peak memory {peak_gib:.3f} GiB")
     for cat, ms in by_cat.items():
@@ -150,7 +155,7 @@ def main() -> int:
           f"{2 * args.d2h_reps} each; {int(want.sum())} foreground voxels); train-HD95 on the "
           f"host {hd95_ms:.1f} ms (mean {float(np.mean(hd95)):.3f})")
     print(json.dumps(dict(device=torch.cuda.get_device_name(0), config=args.config,
-                          layout=net_cfg.layout,
+                          model=args.model, use_aspp=args.use_aspp, layout=net_cfg.layout,
                           wall_ms=wall_ms, walls_ms=walls,
                           device_busy_ms=busy, idle_share=idle, peak_gib=peak_gib,
                           **{f"{k}_ms": v for k, v in by_cat.items()},

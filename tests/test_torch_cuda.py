@@ -2,8 +2,10 @@
 versions, FoldedConv3Fn's gradients against autograd of the plain conv, the
 folded UNet3D on CUDA against the same module on the CPU, its gradients
 against autograd of the plain folded path, one train step on CUDA against
-the same step on the CPU (the Pancreas and the ISLES case), and K2, the
-fused FeCL, against its plain twin. Marked `cuda`; each test skips when no
+the same step on the CPU (the Pancreas, ISLES, VNet and ASPP cases), K2,
+the fused FeCL, against its plain twin, and the VNet's instances of K1 and
+K1-dW (L_in 8 to phase 0: its input folded at phase 1) and its folded
+model on CUDA against the CPU. Marked `cuda`; each test skips when no
 GPU is present. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -16,7 +18,7 @@ import torch
 
 from dycon_paper_replication_tpu_torch import weights
 from dycon_paper_replication_tpu_torch.config import resolve_device
-from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig, VNet, VNetConfig
 from dycon_paper_replication_tpu_torch.ops import folding
 from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
     FoldedConv3,
@@ -186,6 +188,68 @@ def test_isles_train_step_on_cuda_matches_cpu(cuda):
     before = [c.launches for c in counters]
     diffs, scalars, _, sides = check_step(cuda, config="isles22")
     assert [c.launches - n for c, n in zip(counters, before)] == [16, 7, 8, 1, 1]
+    assert diffs == [], (diffs, sides)
+    assert np.isfinite(scalars).all() and scalars[SCALAR_METRICS.index("skipped")] == 0
+
+
+# the VNet's six folded convs at a small grid: (L_in, L_out, to_phase), enc0
+# from the phase-1 image fold (L_in 8, VALID) and the others as in
+# chip_smoke.py's VNET_TRAIN_SHAPES
+VNET_INSTANCES = [(8, 128, 0), (256, 256, 1), (256, 256, 0), (128, 128, 1)]
+
+
+@pytest.mark.parametrize("lin,lout,to_phase", VNET_INSTANCES)
+def test_k1_and_k1_dw_at_vnet_instances(cuda, lin, lout, to_phase):
+    """K1 within 1e-4 x max|plain|, K1-dW within max(1e-4 x max|ref|, 4 x
+    the float32 plain error) of float64 and bit-identical on a rerun, dx
+    (where the model asks for it: L_in > 8) within K1's gate."""
+    g = torch.Generator(device=cuda).manual_seed(lin + to_phase)
+    step = 1 if to_phase == 1 else -1
+    x = torch.randn(2, 6, 7, 5, lin, device=cuda, generator=g)
+    wf = torch.randn(2, 2, 2, lin, lout, device=cuda, generator=g) / (8 * lin) ** 0.5
+    dy = torch.randn(2, 6 + step, 7 + step, 5 + step, lout, device=cuda, generator=g)
+    k1, dw = FoldedConv3(), FoldedConv3Dw()
+    y = k1(x, wf, to_phase=to_phase)
+    want = folded_conv3_plain(x, wf, to_phase=to_phase)
+    got, again = dw(x, dy, to_phase=to_phase), dw(x, dy, to_phase=to_phase)
+    ref = folded_conv3_dw_plain(x.double(), dy.double(), to_phase=to_phase)
+    err_plain = (folded_conv3_dw_plain(x, dy, to_phase=to_phase).double() - ref).abs().max()
+    torch.cuda.synchronize()
+    assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= max(1e-4 * ref.abs().max().item(),
+                                                         4 * err_plain.item())
+    assert torch.equal(got, again)
+    if lin > 8:
+        wf_t = wf.flip(0, 1, 2).transpose(3, 4).contiguous()
+        dx = k1(dy, wf_t, to_phase=1 - to_phase)
+        dx_want = folded_conv3_plain(dy, wf_t, to_phase=1 - to_phase)
+        assert (dx - dx_want).abs().max().item() <= 1e-4 * dx_want.abs().max().item()
+
+
+def test_folded_vnet_on_cuda_matches_cpu(cuda):
+    """The folded VNet (6 K1 launches) on the card against the same module
+    on the CPU, eval mode: within tests/test_vnet_folded.py's atol + rtol
+    5e-4 (seg, sdf) and 1e-3 (features)."""
+    sd = weights.jax_tree_to_state_dict(*weights.init_jax_tree(VNetConfig(), seed=1))
+    x = torch.from_numpy(np.random.default_rng(2).random((2, 32, 32, 16, 1), np.float32))
+    outs = []
+    launches = folded_conv3.launches
+    for device in ("cpu", cuda):
+        net = VNet(VNetConfig(layout="folded")).to(device).eval()
+        net.load_state_dict(sd)
+        with torch.inference_mode():
+            outs.append([t.cpu() for t in net(x.to(device))])
+    assert folded_conv3.launches - launches == 6
+    for (a, b), tol in zip(zip(*outs), (5e-4, 5e-4, 1e-3)):
+        assert ((b - a).abs() - tol * a.abs()).max().item() <= tol
+
+
+@pytest.mark.parametrize("config,launches", [("vnet", [12, 5, 6]), ("aspp", [16, 7, 8])])
+def test_vnet_and_aspp_train_steps_on_cuda_match_cpu(cuda, config, launches):
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    before = [c.launches for c in counters]
+    diffs, scalars, _, sides = check_step(cuda, config=config)
+    assert [c.launches - n for c, n in zip(counters, before)] == launches
     assert diffs == [], (diffs, sides)
     assert np.isfinite(scalars).all() and scalars[SCALAR_METRICS.index("skipped")] == 0
 

@@ -1,7 +1,8 @@
 """The device cross-check of one train step (train/device_check.py) on the
 CPU: two CPU runs of the same step from equal states agree (the Pancreas
 and the ISLES case), the step moved the state, and each kind of leaf that
-moves past its tolerance is reported. The kink sides, in both cases: with
+moves past its tolerance is reported. The kink sides, in every case
+(Pancreas, ISLES, VNet and UNet3D + ASPP, device_check.CONFIGS): with
 float32-level noise on one side's folded conv outputs (uniform, 2e-6 of
 max|y|, about K1's own difference from the plain conv) the check passes at
 seeds 0-3, the CPU step taking the noisy side's ReLU sides within the

@@ -115,4 +115,4 @@ def test_factory_builds_on_cpu_and_refuses_other_nets():
     net = net_factory_3d("unet_3D", layout="folded", device="cpu")
     assert net.cfg.filters == (16, 32, 64, 128, 256) and not net.training
     with pytest.raises(ValueError):
-        net_factory_3d("vnet", device="cpu")
+        net_factory_3d("unet_2D", device="cpu")
