@@ -4,8 +4,9 @@ per-case Dice/HD95/ASD/sensitivity/specificity, the mean and std table and
 a test_results_labelnum<N>.txt file in the snapshot directory.
 
 Counterpart of dycon_paper_replication_tpu/cli/test_isles22.py, with the
-flags the port implements plus `--device` (default cuda); bfloat16, volume
-parallelism and volume groups are refused. Run as
+flags the port implements plus `--device` (default cuda); `--compute_dtype`
+takes bfloat16 (auto is float32); volume parallelism and volume groups are
+refused. Run as
     python -m dycon_paper_replication_tpu_torch.cli.test_isles22 --root_dir DATA ...
 """
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..config import make_config, resolve_device
+from ..config import COMPUTE_DTYPES, make_config, resolve_device
 from ..data import ISLESDataset
 from ..eval import WholeVolumeInference, iter_volumes, test_all_case_wholevolume
 from ..models import net_factory_3d
@@ -38,7 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feature_scaler", type=int, default=4)
     p.add_argument("--patch_size", type=int, nargs=3, default=[96, 96, 64])
     p.add_argument("--snapshot_root", type=str, default="./runs")
-    p.add_argument("--compute_dtype", type=str, default="auto", choices=["auto", "float32"])
+    p.add_argument("--compute_dtype", type=str, default="auto",
+                   choices=["auto", *COMPUTE_DTYPES],
+                   help="auto = float32 (bfloat16 runs only when asked for)")
     p.add_argument("--layout", type=str, default="auto", choices=["auto", "NDHWC", "folded"])
     p.add_argument("--patch_batch", type=int, default=0)  # accepted for symmetry
     p.add_argument("--data_parallel", type=int, default=0, choices=[0, 1])
@@ -49,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    _, layout, _ = resolve_perf_flags(args)
+    dtype, layout, _ = resolve_perf_flags(args)
     cfg = make_config(
         "isles22", exp=args.exp, model=args.model, labelnum=args.labelnum, temp=args.temp,
         consistency_type=args.consistency_type, max_iterations=args.max_iterations,
@@ -58,7 +61,8 @@ def main(argv=None) -> dict:
     snapshot_path = cfg.snapshot_path()
     model = net_factory_3d(args.model, in_chns=args.in_ch, class_num=args.num_classes,
                            scaler=args.feature_scaler, use_aspp=args.use_aspp, layout=layout,
-                           device=resolve_device(args.device))
+                           device=resolve_device(args.device),
+                           compute_dtype=COMPUTE_DTYPES[dtype])
     ckpt_path = checkpoint.best_checkpoint_path(snapshot_path, args.model)
     checkpoint.restore_checkpoint(ckpt_path, model)
     print(f"Loading best model from: {ckpt_path}")

@@ -13,7 +13,9 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..config import make_config, resolve_device
+import numpy as np
+
+from ..config import COMPUTE_DTYPES, make_config, resolve_device
 from ..eval import SlidingWindowInference, iter_volumes, test_all_case
 from ..models import net_factory_3d
 from ..utils import checkpoint
@@ -46,8 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stride_z", type=int, default=4)
     p.add_argument("--gpu_id", type=str, default="0")
     p.add_argument("--list_name", type=str, default="test1.list")
-    # float32 only in this slice (bf16 is on the roadmap)
-    p.add_argument("--compute_dtype", type=str, default="auto", choices=["auto", "float32"])
+    p.add_argument("--compute_dtype", type=str, default="auto",
+                   choices=["auto", *COMPUTE_DTYPES],
+                   help="auto = float32 (bfloat16 runs only when asked for)")
     p.add_argument("--layout", type=str, default="auto", choices=["auto", "NDHWC", "folded"])
     p.add_argument("--patch_batch", type=int, default=0,
                    help="patches per forward; 0 = auto (4 on cuda, 2 on cpu)")
@@ -59,13 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def resolve_perf_flags(args) -> tuple[str, str, int]:
-    """(compute_dtype, layout, patch_batch) for the device: float32, folded
-    (unet_3D and vnet alike) and 4 patches per forward on cuda; float32, the
-    plain layout and 2 on the CPU."""
+    """(compute_dtype, layout, patch_batch) for the device: folded (unet_3D
+    and vnet alike) and 4 patches per forward on cuda, the plain layout and
+    2 on the CPU. `--compute_dtype auto` is float32 on both (the JAX CLI's
+    auto is bfloat16 on a TPU only); bfloat16 runs when asked for."""
     on_cuda = args.device == "cuda"
     layout = args.layout if args.layout != "auto" else ("folded" if on_cuda else "NDHWC")
     patch_batch = args.patch_batch or (4 if on_cuda else 2)
-    return "float32", layout, patch_batch
+    dtype = "float32" if args.compute_dtype == "auto" else args.compute_dtype
+    return dtype, layout, patch_batch
 
 
 def run_test(args, dataset: str, volume_iter) -> tuple:
@@ -80,16 +85,18 @@ def run_test(args, dataset: str, volume_iter) -> tuple:
     )
     snapshot_path = cfg.snapshot_path()
     device = resolve_device(args.device)
-    _, layout, patch_batch = resolve_perf_flags(args)
+    dtype, layout, patch_batch = resolve_perf_flags(args)
     model = net_factory_3d(args.model, in_chns=args.in_ch, class_num=cfg.num_classes,
                            scaler=args.feature_scaler, use_aspp=args.use_aspp, layout=layout,
-                           device=device)
+                           device=device, compute_dtype=COMPUTE_DTYPES[dtype])
     ckpt_path = checkpoint.best_checkpoint_path(snapshot_path, args.model)
     checkpoint.restore_checkpoint(ckpt_path, model)
     print(f"init weight from {ckpt_path}")
 
+    # the JAX CLI's transfer dtype: the image rounded through float16 in bfloat16
     sw = SlidingWindowInference(model, tuple(args.patch_size), args.stride_xy, args.stride_z,
-                                patch_batch=patch_batch)
+                                patch_batch=patch_batch,
+                                transfer_dtype=np.float16 if dtype == "bfloat16" else np.float32)
     save_path = os.path.join(snapshot_path, f"{args.exp}_predictions")
     avg = test_all_case(sw, volume_iter, nms=bool(args.nms), metric_detail=bool(args.detail),
                         test_save_path=save_path)

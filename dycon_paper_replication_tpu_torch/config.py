@@ -11,7 +11,10 @@ Fields dropped from the JAX config, by decision:
 Field added: `device` ("cuda" or "cpu"), the torch device of a run.
 `layout="auto"` resolves against the torch device: "folded" for unet_3D and
 vnet on CUDA, where the fold-2 conv is the hand-written kernel K1, and
-"NDHWC" elsewhere. The compute dtype on the card is float32. `--model`
+"NDHWC" elsewhere. `--compute_dtype` is float32 (the default) or bfloat16,
+the JAX flag: the model's convs compute in it, with float32 parameters,
+norm statistics, heads and losses (models/unet3d.py); checkpoints hold the
+float32 parameters either way, so the run directory does not encode it. `--model`
 takes unet_3D and vnet; `--use_aspp 1` puts ASPP on the UNet3D's
 bottleneck (the VNet takes none, as in the JAX factory). Snapshot paths and
 checkpoint names follow the model (VNET_..., vnet_best_model.pt).
@@ -20,7 +23,7 @@ checkpoint names follow the model (VNET_..., vnet_best_model.pt).
 what the port's trainer implements, plus `--device`, for the three datasets
 ("pancreas", "brats19", "isles22"). Refused by argparse rather than accepted
 and ignored:
-  * the flags of features not ported: bf16, --remat,
+  * the flags of features not ported: --remat,
     --wire_dtype, and data parallelism (--data_parallel, and the
     reference's --gpu_ids / --use_ddp: ROADMAP Queue A item 7); the device
     is --device, so --gpu_id is refused too;
@@ -112,7 +115,7 @@ class TrainConfig:
     val_stride_z: int = 64
 
     # runtime
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # float32 | bfloat16
     num_prefetch: int = 2
     data_parallel: int = 0
     resume: str = ""
@@ -129,6 +132,10 @@ class TrainConfig:
             return self.layout
         on_cuda = torch.device(device).type == "cuda"
         return "folded" if on_cuda and self.model in ("unet_3D", "vnet") else "NDHWC"
+
+    def torch_compute_dtype(self) -> torch.dtype:
+        """`compute_dtype` as a torch dtype."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     def snapshot_path(self) -> str:
         """Hyperparameter-encoded run directory (the JAX package's two
@@ -150,6 +157,8 @@ class TrainConfig:
             f"{beta_str}_max_iterations{self.max_iterations}"
         )
 
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 DATASET_DEFAULTS: dict[str, dict[str, Any]] = {
     "pancreas": dict(
@@ -223,7 +232,8 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--use_focal", type=int, default=d.use_focal)
     p.add_argument("--use_teacher_loss", type=int, default=d.use_teacher_loss)
     p.add_argument("--snapshot_root", type=str, default=d.snapshot_root)
-    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype, choices=["float32"])
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
+                   choices=list(COMPUTE_DTYPES))
     p.add_argument("--val_every", type=int, default=d.val_every)
     p.add_argument("--save_every", type=int, default=d.save_every)
     p.add_argument("--time_budget_s", type=float, default=d.time_budget_s,

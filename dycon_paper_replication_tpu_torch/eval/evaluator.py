@@ -103,9 +103,12 @@ class WholeVolumeInference:
     `head`, cut back to the volume: "sdf" (output 0, the tanh SDF head, which
     the reference's in-training ISLES validation argmaxes) or "seg" (output
     1, the segmentation logits, the offline test's). The padded volume goes
-    to the device as float32 (the JAX package sends float16 over its host
-    link; the port has no wire dtype, config.py). `map` takes volume groups
-    of 1 only: batching several volumes per forward is not ported."""
+    to the device as float32 with a float32 model (the JAX package sends
+    float16 over its host link; the port has no wire dtype, config.py) and
+    as float16 with a bfloat16 model, whose values then match the JAX
+    package's bfloat16 path: its image is rounded through float16, and half
+    the bytes cross. `map` takes volume groups of 1 only: batching several
+    volumes per forward is not ported."""
 
     def __init__(self, model, patch_size: tuple[int, int, int], head: str = "seg"):
         if head not in ("sdf", "seg"):
@@ -114,6 +117,8 @@ class WholeVolumeInference:
         self.patch = tuple(patch_size)
         self.head = head
         self.device = next(model.parameters()).device
+        self.transfer_dtype = (np.float16 if model.cfg.compute_dtype == torch.bfloat16
+                               else np.float32)
 
     def _pad(self, image: np.ndarray) -> tuple[np.ndarray, tuple[slice, ...]]:
         """(the padded float32 volume, the slices of the original in it)."""
@@ -125,8 +130,8 @@ class WholeVolumeInference:
     @torch.inference_mode()
     def predict(self, image: np.ndarray) -> np.ndarray:
         """The (D1, D2, D3) uint8 label map of one volume."""
-        padded, sl = self._pad(np.asarray(image, np.float32))
-        x = torch.from_numpy(padded)[None, ..., None].to(self.device)
+        padded, sl = self._pad(np.asarray(image, self.transfer_dtype))
+        x = torch.from_numpy(padded)[None, ..., None].to(self.device).to(torch.float32)
         outputs = self.model(x, with_projection=False)
         pred = outputs[0 if self.head == "sdf" else 1].argmax(dim=-1).to(torch.uint8)
         return pred[0].cpu().numpy()[sl]

@@ -23,6 +23,13 @@ origin takes the plain accumulator (softmax of channels-last logits).
 Not ported yet: mesh sharding, volume groups larger than 1 and the host
 staging ring. The label map comes back as uint8, unpacked: on the card a
 uint8 copy beats packing it (ops/bits.py).
+
+`transfer_dtype` is the JAX engine's: the dtype the volume crosses the host
+link in, float32 by default (the trainer's validation) and float16 where
+the JAX test CLI asks for it, with a bfloat16 model. In float16 the image
+is rounded as JAX rounds it, and half the bytes cross; on the card it is
+widened to float32 before patching, so the model sees the same values as
+JAX's. The model's first conv casts them to its compute dtype.
 """
 
 from __future__ import annotations
@@ -60,8 +67,9 @@ class SlidingWindowInference:
     runs an iterable of (image, *rest) items."""
 
     def __init__(self, model, patch_size: tuple[int, int, int], stride_xy: int,
-                 stride_z: int, patch_batch: int = 4):
+                 stride_z: int, patch_batch: int = 4, transfer_dtype=np.float32):
         self.model = model
+        self.transfer_dtype = transfer_dtype
         self.patch = tuple(patch_size)
         self.stride_xy = stride_xy
         self.stride_z = stride_z
@@ -140,7 +148,7 @@ class SlidingWindowInference:
 
         raw = tuple(slice(lo, lo + s) for lo, s in zip(pads, raw_shape))
         vol = torch.zeros(true_shape, dtype=torch.float32, device=self.device)
-        vol[raw] = torch.from_numpy(np.asarray(image, np.float32)).to(self.device)
+        vol[raw] = torch.from_numpy(np.asarray(image, self.transfer_dtype)).to(self.device)
         if folded:
             score = self._accum_folded(vol, origins) * self._inv_cnt(true_shape, origins, True)
             score = unfold2(score[None])[0, ..., 0]

@@ -13,6 +13,12 @@ JAX layer's are lax.conv outside any Pallas kernel.
 Kept from the reference: the pooled branch skips its BatchNorm when the
 batch has one sample (its statistics would be of one value), decided by
 the batch size as the JAX layer decides it statically.
+
+`compute_dtype` is the model's: every conv casts its input and weight to
+it, so in bfloat16 the branches and their concatenation are bfloat16. The
+JAX layer passes no compute dtype to its convs, so under its bfloat16 model
+(a bfloat16 bottleneck against float32 weights) lax.conv refuses the mixed
+operands; the port casts them as the JAX package's other convs do.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ def dilations(output_stride: int) -> tuple[int, ...]:
 
 
 class ASPPBranch(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int]):
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int],
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = layers.Conv3d(in_ch, out_ch, kernel, use_bias=False)
+        self.conv = layers.Conv3d(in_ch, out_ch, kernel, use_bias=False,
+                                  compute_dtype=compute_dtype)
         self.bn = layers.BatchNorm(out_ch)
 
 
@@ -45,15 +53,18 @@ class ASPP3D(nn.Module):
     branch's running stats at aspp<i> itself, the port's module at
     aspp<i>.bn; weights.py maps one onto the other."""
 
-    def __init__(self, inplanes: int, outplanes: int, output_stride: int = 16):
+    def __init__(self, inplanes: int, outplanes: int, output_stride: int = 16,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.dilations = dilations(output_stride)
         for i, _ in enumerate(self.dilations):
             kernel = (1, 1, 1) if i == 0 else (3, 3, 3)
-            setattr(self, f"aspp{i + 1}", ASPPBranch(inplanes, outplanes, kernel))
-        self.pool_conv = layers.Conv3d(inplanes, outplanes, (1, 1, 1), use_bias=False)
+            setattr(self, f"aspp{i + 1}", ASPPBranch(inplanes, outplanes, kernel, compute_dtype))
+        self.pool_conv = layers.Conv3d(inplanes, outplanes, (1, 1, 1), use_bias=False,
+                                       compute_dtype=compute_dtype)
         self.pool_bn = layers.BatchNorm(outplanes)
-        self.fuse_conv = layers.Conv3d(outplanes * 5, outplanes, (1, 1, 1), use_bias=False)
+        self.fuse_conv = layers.Conv3d(outplanes * 5, outplanes, (1, 1, 1), use_bias=False,
+                                       compute_dtype=compute_dtype)
         self.fuse_bn = layers.BatchNorm(outplanes)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -63,7 +74,8 @@ class ASPP3D(nn.Module):
         branches = []
         for i, dil in enumerate(self.dilations):
             branch = getattr(self, f"aspp{i + 1}")
-            h = layers.conv3d(x, branch.conv.w, padding="SAME" if i else "VALID", dilation=dil)
+            h = layers.conv3d(x, branch.conv.w, padding="SAME" if i else "VALID", dilation=dil,
+                              compute_dtype=branch.conv.compute_dtype)
             branches.append(layers.relu(branch.bn(h)))
         pooled = self.pool_conv(global_avg_pool(x))
         if x.shape[0] > 1:

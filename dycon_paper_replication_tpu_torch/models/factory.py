@@ -25,22 +25,25 @@ def build_model(cfg: UNet3DConfig | VNetConfig) -> nn.Module:
 
 
 def model_config(net_type: str = "unet_3D", in_chns: int = 1, class_num: int = 2,
-                 scaler: int = 4, use_aspp: bool = False,
-                 layout: str = "NDHWC") -> UNet3DConfig | VNetConfig:
+                 scaler: int = 4, use_aspp: bool = False, layout: str = "NDHWC",
+                 compute_dtype: torch.dtype = torch.float32) -> UNet3DConfig | VNetConfig:
     if net_type == "unet_3D":
         return UNet3DConfig(in_channels=in_chns, n_classes=class_num, scale_factor=int(scaler),
-                            use_aspp=bool(use_aspp), layout=layout)
+                            use_aspp=bool(use_aspp), compute_dtype=compute_dtype, layout=layout)
     if net_type == "vnet":
         return VNetConfig(in_channels=in_chns, n_classes=class_num, scale_factor=int(scaler),
-                          layout=layout)
+                          compute_dtype=compute_dtype, layout=layout)
     raise ValueError(f"unknown net_type: {net_type!r}")
 
 
 def net_factory_3d(net_type: str = "unet_3D", in_chns: int = 1, class_num: int = 2,
                    scaler: int = 4, use_aspp: bool = False, layout: str = "NDHWC",
-                   device: torch.device | str = "cuda") -> nn.Module:
+                   device: torch.device | str = "cuda",
+                   compute_dtype: torch.dtype = torch.float32) -> nn.Module:
     """An eval-mode UNet3D or VNet on `device` (which must exist: cuda
-    raises when missing) with uninitialised weights: load a checkpoint
-    (utils/checkpoint) or a state_dict (weights.py) before use."""
-    cfg = model_config(net_type, in_chns, class_num, scaler, use_aspp, layout)
+    raises when missing) computing in `compute_dtype` (float32 or
+    bfloat16; the parameters are float32 either way), with uninitialised
+    weights: load a checkpoint (utils/checkpoint) or a state_dict
+    (weights.py) before use."""
+    cfg = model_config(net_type, in_chns, class_num, scaler, use_aspp, layout, compute_dtype)
     return build_model(cfg).to(resolve_device(device)).eval()

@@ -4,6 +4,12 @@ Counterpart of dycon_paper_replication_tpu/models/layers.py. Conv kernels
 are kept in the JAX package's DHWIO layout (kd, kh, kw, Ci, Co), so the
 fold-2 engine folds them directly and a JAX parameter tree maps onto the
 port's state_dict without reordering.
+
+`compute_dtype` is the JAX layers': a conv casts its input and its weight
+to it (None: the weight to the input's dtype) and emits it, and the bias is
+cast to the output's dtype before it is added, after the conv's own
+rounding. The norms take float32 statistics and return the input's dtype;
+parameters and running statistics stay float32.
 """
 
 from __future__ import annotations
@@ -12,32 +18,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.folded_conv_cuda import cast_operands, library_conv
+
 
 class Conv3d(nn.Module):
     """Parameters of one 3-D conv: `w` (kd, kh, kw, Ci, Co) and bias `b` (Co,),
-    or no bias with `use_bias=False` (ASPP's convs, in front of a BatchNorm)."""
+    or no bias with `use_bias=False` (ASPP's convs, in front of a BatchNorm).
+    The forward computes in `compute_dtype` (see conv3d)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (3, 3, 3),
-                 use_bias: bool = True):
+                 use_bias: bool = True, compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(*kernel, in_ch, out_ch))
         self.b = nn.Parameter(torch.empty(out_ch)) if use_bias else None
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d(x, self.w, self.b)
+        return conv3d(x, self.w, self.b, compute_dtype=self.compute_dtype)
 
 
 class ConvTranspose3d(nn.Module):
     """Parameters of one transposed 3-D conv, in the JAX package's layout:
     `w` (kd, kh, kw, Ci, Co) and bias `b` (Co,). See conv_transpose3d."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (2, 2, 2)):
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int, int] = (2, 2, 2),
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(*kernel, in_ch, out_ch))
         self.b = nn.Parameter(torch.empty(out_ch))
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose3d(x, self.w, self.b)
+        return conv_transpose3d(x, self.w, self.b, compute_dtype=self.compute_dtype)
 
 
 class BatchNorm(nn.Module):
@@ -63,8 +75,13 @@ class BatchNorm(nn.Module):
         return y
 
 
+def _add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    return y if b is None else y + b.to(y.dtype)
+
+
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-           stride: int = 1, padding: str = "SAME", dilation: int = 1) -> torch.Tensor:
+           stride: int = 1, padding: str = "SAME", dilation: int = 1,
+           compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """3-D conv of (B, D1, D2, D3, Ci) with a DHWIO kernel: "SAME" (stride 1,
     odd kernel sizes, zero pad dilation * (k - 1) / 2) or "VALID" padding,
     the same stride and dilation on every axis. F.conv3d reads the
@@ -78,22 +95,24 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         pad = 0
     else:
         raise ValueError(f"conv3d: padding must be SAME or VALID, got {padding!r}")
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, stride=stride,
-                 padding=pad, dilation=dilation)
-    return y.permute(0, 2, 3, 4, 1)
+    x, w = cast_operands(x, w, compute_dtype)
+    y = library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                     stride=stride, padding=pad, dilation=dilation)
+    return _add_bias(y.permute(0, 2, 3, 4, 1), b)
 
 
-def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor | None = None) -> torch.Tensor:
+def conv_transpose3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                     compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Transposed 3-D conv of (B, D1, D2, D3, Ci), stride 2, VALID, with the
     JAX layer's kernel w (kd, kh, kw, Ci, Co): a kernel of 2 doubles every
     spatial axis. The JAX layer is lax.conv_transpose with
     transpose_kernel=False, which mirrors the kernel spatially against
     F.conv_transpose3d: y[2i + p] = x[i] w[1 - p] where torch computes
     x[i] w[p]. The flip is here, once; the weights keep the JAX layout."""
+    x, w = cast_operands(x, w, compute_dtype)
     wt = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2)  # (Ci, Co, kd, kh, kw)
-    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt, b, stride=2)
-    return y.permute(0, 2, 3, 4, 1)
+    y = library_conv(F.conv_transpose3d, x.permute(0, 4, 1, 2, 3), wt, stride=2)
+    return _add_bias(y.permute(0, 2, 3, 4, 1), b)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -15,6 +15,12 @@ Inputs and outputs are channels-last float32. `cfg.layout` is "NDHWC" (the
 plain path here) or "folded" (models/unet3d_folded.py: levels 1-2 in fold-2
 execution through the K1 kernel on the card). The submodule names are the
 JAX parameter tree's, so weights.py maps one onto the other by name.
+
+`cfg.compute_dtype` (float32 or bfloat16) is the JAX config's: every conv
+casts its input and weight to it, the norms keep it, a skip is cast to the
+upsampled tensor's dtype before the concatenation, and the three heads are
+cast to float32, so the losses see float32. Parameters and BatchNorm
+running statistics stay float32.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ class UNet3DConfig:
     dropout_rate: float = 0.3
     proj_hidden: int = 512
     proj_out: int = 256
+    compute_dtype: torch.dtype = torch.float32
     layout: str = "NDHWC"  # "NDHWC" or "folded"
 
     @property
@@ -47,10 +54,10 @@ class UNet3DConfig:
 
 
 class UnetConv3(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = layers.Conv3d(in_ch, out_ch)
-        self.conv2 = layers.Conv3d(out_ch, out_ch)
+        self.conv1 = layers.Conv3d(in_ch, out_ch, compute_dtype=compute_dtype)
+        self.conv2 = layers.Conv3d(out_ch, out_ch, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = layers.relu(layers.instance_norm(self.conv1(x)))
@@ -58,11 +65,12 @@ class UnetConv3(nn.Module):
 
 
 class ProjectionHead(nn.Module):
-    def __init__(self, in_ch: int, hidden: int, out: int):
+    def __init__(self, in_ch: int, hidden: int, out: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = layers.Conv3d(in_ch, hidden, (1, 1, 1))
+        self.conv1 = layers.Conv3d(in_ch, hidden, (1, 1, 1), compute_dtype=compute_dtype)
         self.bn1 = layers.BatchNorm(hidden)
-        self.conv2 = layers.Conv3d(hidden, out, (1, 1, 1))
+        self.conv2 = layers.Conv3d(hidden, out, (1, 1, 1), compute_dtype=compute_dtype)
         self.bn2 = layers.BatchNorm(out)
 
 
@@ -77,20 +85,21 @@ class UNet3D(nn.Module):
             raise ValueError(f"unknown layout {cfg.layout!r}")
         self.cfg = cfg
         f = cfg.filters
-        self.conv1 = UnetConv3(cfg.in_channels, f[0])
-        self.conv2 = UnetConv3(f[0], f[1])
-        self.conv3 = UnetConv3(f[1], f[2])
-        self.conv4 = UnetConv3(f[2], f[3])
-        self.center = UnetConv3(f[3], f[4])
-        self.up_concat4 = UnetConv3(f[4] + f[3], f[3])
-        self.up_concat3 = UnetConv3(f[3] + f[2], f[2])
-        self.up_concat2 = UnetConv3(f[2] + f[1], f[1])
-        self.up_concat1 = UnetConv3(f[1] + f[0], f[0])
-        self.final = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
-        self.out_conv2 = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
-        self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out)
+        cd = cfg.compute_dtype
+        self.conv1 = UnetConv3(cfg.in_channels, f[0], cd)
+        self.conv2 = UnetConv3(f[0], f[1], cd)
+        self.conv3 = UnetConv3(f[1], f[2], cd)
+        self.conv4 = UnetConv3(f[2], f[3], cd)
+        self.center = UnetConv3(f[3], f[4], cd)
+        self.up_concat4 = UnetConv3(f[4] + f[3], f[3], cd)
+        self.up_concat3 = UnetConv3(f[3] + f[2], f[2], cd)
+        self.up_concat2 = UnetConv3(f[2] + f[1], f[1], cd)
+        self.up_concat1 = UnetConv3(f[1] + f[0], f[0], cd)
+        self.final = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1), compute_dtype=cd)
+        self.out_conv2 = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1), compute_dtype=cd)
+        self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out, cd)
         if cfg.use_aspp:
-            self.aspp = ASPP3D(f[4], f[4])
+            self.aspp = ASPP3D(f[4], f[4], compute_dtype=cd)
 
     def forward(self, x: torch.Tensor, *, with_projection: bool = True,
                 generator: torch.Generator | None = None):
@@ -115,10 +124,10 @@ class UNet3D(nn.Module):
         h = center
         for name, skip in zip(_DECODER, skips[::-1]):
             up = upsample2x(h)
-            h = getattr(self, name)(torch.cat([skip, up], dim=-1))
+            h = getattr(self, name)(torch.cat([skip.to(up.dtype), up], dim=-1))
         h = layers.dropout(h, self.cfg.dropout_rate, generator, train)
-        sdf = torch.tanh(self.final(h))
-        seg = self.out_conv2(h)
+        sdf = torch.tanh(self.final(h).to(torch.float32))
+        seg = self.out_conv2(h).to(torch.float32)
         features = (projection_head(self, center, generator=generator) if with_projection
                     else None)
         return sdf, seg, features

@@ -28,16 +28,17 @@ from ..ops.folding import (
 from ..ops.resize import max_pool_2x, upsample2x
 
 
-def _folded_block(block, x: torch.Tensor, *, grid, n_valid: int) -> torch.Tensor:
+def _folded_block(block, x: torch.Tensor, *, grid, n_valid: int,
+                  cd: torch.dtype | None = None) -> torch.Tensor:
     """UnetConv3 on folded data: conv(0->1) + IN + ReLU + conv(1->0) + IN +
     ReLU. x (B, *grid, 8Ci) phase-0 -> (B, *grid, 8Co) phase-0. The lane
     masks keep the phase-1 boundary planes out of the statistics and zero
     them for the second conv."""
     co = block.conv1.w.shape[4]
     masks = phase1_lane_masks(tuple(g + 1 for g in grid), co, device=x.device)
-    h = folded_conv3(x, block.conv1.w, block.conv1.b, to_phase=1)
+    h = folded_conv3(x, block.conv1.w, block.conv1.b, to_phase=1, compute_dtype=cd)
     h = layers.relu(instance_norm_folded(h, n_valid, masks=masks))
-    h = folded_conv3(h, block.conv2.w, block.conv2.b, to_phase=0)
+    h = folded_conv3(h, block.conv2.w, block.conv2.b, to_phase=0, compute_dtype=cd)
     return layers.relu(instance_norm_folded(h, n_valid))
 
 
@@ -53,14 +54,15 @@ def unet3d_trunk_folded(net, xf: torch.Tensor, *,
         raise ValueError(f"folded grid {(G1, G2, G3)} must be divisible by 8")
     train = net.training
     rate = net.cfg.dropout_rate
+    cd = net.cfg.compute_dtype
     g1 = (G1, G2, G3)
     g2 = tuple(g // 2 for g in g1)
     n1 = 8 * G1 * G2 * G3
     n2 = n1 // 8
 
     # folded encoder levels 1-2
-    s1 = _folded_block(net.conv1, xf, grid=g1, n_valid=n1)
-    s2 = _folded_block(net.conv2, pool_refold(s1), grid=g2, n_valid=n2)
+    s1 = _folded_block(net.conv1, xf, grid=g1, n_valid=n1, cd=cd)
+    s2 = _folded_block(net.conv2, pool_refold(s1), grid=g2, n_valid=n2, cd=cd)
     h = pool_consume_fold(s2)  # unfolded level-3 input
 
     # unfolded middle
@@ -69,13 +71,16 @@ def unet3d_trunk_folded(net, xf: torch.Tensor, *,
     center = layers.dropout(net.center(max_pool_2x(s4)), rate, generator, train)
     h = center
     for block, skip in ((net.up_concat4, s4), (net.up_concat3, s3)):
-        h = block(torch.cat([skip, upsample2x(h)], dim=-1))
+        up = upsample2x(h)
+        h = block(torch.cat([skip.to(up.dtype), up], dim=-1))
 
     # folded decoder levels 2-1, skip first as in the plain path
-    h = torch.cat([s2, upsample2x_folded(h)], dim=-1)
-    h = _folded_block(net.up_concat2, h, grid=g2, n_valid=n2)
-    h = torch.cat([s1, upsample2x_folded(unfold2(h))], dim=-1)
-    h = _folded_block(net.up_concat1, h, grid=g1, n_valid=n1)
+    up = upsample2x_folded(h)
+    h = _folded_block(net.up_concat2, torch.cat([s2.to(up.dtype), up], dim=-1), grid=g2,
+                      n_valid=n2, cd=cd)
+    up = upsample2x_folded(unfold2(h))
+    h = _folded_block(net.up_concat1, torch.cat([s1.to(up.dtype), up], dim=-1), grid=g1,
+                      n_valid=n1, cd=cd)
     h = layers.dropout(h, rate, generator, train)
     return h, center
 
@@ -85,7 +90,8 @@ def unet3d_seg_folded_io(net, xf: torch.Tensor) -> torch.Tensor:
     phase-0 -> (B, *G, 8*n_classes) float32 with class-major lanes
     (lane = class * 8 + sub-position), equal to fold2 of the plain logits."""
     h, _ = unet3d_trunk_folded(net, xf)
-    return conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b).to(torch.float32)
+    return conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b,
+                          net.cfg.compute_dtype).to(torch.float32)
 
 
 def unet3d_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
@@ -97,9 +103,10 @@ def unet3d_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
     _, D, H, W, _ = x.shape
     if D % 16 or H % 16 or W % 16:
         raise ValueError(f"spatial dims {(D, H, W)} must be divisible by 16")
+    cd = net.cfg.compute_dtype
     h, center = unet3d_trunk_folded(net, fold2(x), generator=generator)
-    sdf = torch.tanh(unfold2(conv1x1_folded(h, net.final.w, net.final.b)).to(torch.float32))
-    seg = unfold2(conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b)).to(torch.float32)
+    sdf = torch.tanh(unfold2(conv1x1_folded(h, net.final.w, net.final.b, cd)).to(torch.float32))
+    seg = unfold2(conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b, cd)).to(torch.float32)
     features = (projection_head(net, center, generator=generator) if with_projection
                 else None)
     return sdf, seg, features

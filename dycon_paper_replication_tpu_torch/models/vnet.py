@@ -17,7 +17,10 @@ interface; the port keeps it. Every BatchNorm takes batch statistics in
 training mode. Inputs and outputs are channels-last float32. `cfg.layout`
 is "NDHWC" (the plain path here) or "folded" (models/vnet_folded.py: the
 two full- and half-resolution levels in fold-2 execution, through K1 on the
-card). The submodule names are the JAX parameter tree's.
+card). The submodule names are the JAX parameter tree's. `cfg.compute_dtype`
+is the JAX config's, as in models/unet3d.py: the convs cast to it, an
+additive skip is cast to the upsampled tensor's dtype, the heads to
+float32.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ class VNetConfig:
     dropout_rate: float = 0.5
     proj_hidden: int = 512
     proj_out: int = 256
+    compute_dtype: torch.dtype = torch.float32
     layout: str = "NDHWC"  # "NDHWC" or "folded"
 
     @property
@@ -54,11 +58,13 @@ class VNetConfig:
 class ConvBlock(nn.Module):
     """n_stages x [3^3 conv -> BatchNorm -> ReLU]: conv0, bn0, conv1, ..."""
 
-    def __init__(self, n_stages: int, in_ch: int, out_ch: int):
+    def __init__(self, n_stages: int, in_ch: int, out_ch: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.n_stages = n_stages
         for i in range(n_stages):
-            setattr(self, f"conv{i}", layers.Conv3d(in_ch if i == 0 else out_ch, out_ch))
+            setattr(self, f"conv{i}", layers.Conv3d(in_ch if i == 0 else out_ch, out_ch,
+                                                    compute_dtype=compute_dtype))
             setattr(self, f"bn{i}", layers.BatchNorm(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,17 +76,20 @@ class ConvBlock(nn.Module):
 class Resample(nn.Module):
     """A 2^3 stride-2 conv (down) or transposed conv (up), BatchNorm, ReLU."""
 
-    def __init__(self, in_ch: int, out_ch: int, up: bool):
+    def __init__(self, in_ch: int, out_ch: int, up: bool,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.up = up
-        self.conv = (layers.ConvTranspose3d if up else layers.Conv3d)(in_ch, out_ch, (2, 2, 2))
+        self.conv = (layers.ConvTranspose3d if up else layers.Conv3d)(
+            in_ch, out_ch, (2, 2, 2), compute_dtype=compute_dtype)
         self.bn = layers.BatchNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.up:
             h = self.conv(x)
         else:
-            h = layers.conv3d(x, self.conv.w, self.conv.b, stride=2, padding="VALID")
+            h = layers.conv3d(x, self.conv.w, self.conv.b, stride=2, padding="VALID",
+                              compute_dtype=self.conv.compute_dtype)
         return layers.relu(self.bn(h))
 
 
@@ -91,18 +100,20 @@ class VNet(nn.Module):
             raise ValueError(f"unknown layout {cfg.layout!r}")
         self.cfg = cfg
         f = cfg.filters
+        cd = cfg.compute_dtype
         ch = cfg.in_channels
         for lvl, stages in enumerate(ENC_STAGES):
-            setattr(self, f"enc{lvl}", ConvBlock(stages, ch, f[lvl]))
+            setattr(self, f"enc{lvl}", ConvBlock(stages, ch, f[lvl], cd))
             if lvl < 4:
-                setattr(self, f"down{lvl}", Resample(f[lvl], f[lvl + 1], up=False))
+                setattr(self, f"down{lvl}", Resample(f[lvl], f[lvl + 1], up=False,
+                                                     compute_dtype=cd))
             ch = f[lvl + 1] if lvl < 4 else f[lvl]
         for lvl in range(4):  # up from level 4 to level 1
-            setattr(self, f"up{lvl}", Resample(f[4 - lvl], f[3 - lvl], up=True))
-            setattr(self, f"dec{lvl}", ConvBlock(DEC_STAGES[lvl], f[3 - lvl], f[3 - lvl]))
-        self.out_conv = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
-        self.out_conv_sdf = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1))
-        self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out)
+            setattr(self, f"up{lvl}", Resample(f[4 - lvl], f[3 - lvl], up=True, compute_dtype=cd))
+            setattr(self, f"dec{lvl}", ConvBlock(DEC_STAGES[lvl], f[3 - lvl], f[3 - lvl], cd))
+        self.out_conv = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1), compute_dtype=cd)
+        self.out_conv_sdf = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1), compute_dtype=cd)
+        self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out, cd)
 
     def forward(self, x: torch.Tensor, *, with_projection: bool = True,
                 generator: torch.Generator | None = None):
@@ -127,7 +138,8 @@ class VNet(nn.Module):
         center = layers.dropout(h, rate, generator, train)
         h = center
         for lvl in range(4):
-            h = getattr(self, f"up{lvl}")(h) + skips[3 - lvl]
+            h = getattr(self, f"up{lvl}")(h)
+            h = h + skips[3 - lvl].to(h.dtype)
             h = getattr(self, f"dec{lvl}")(h)
         h = layers.dropout(h, rate, generator, train)
         seg = self.out_conv(h).to(torch.float32)

@@ -55,14 +55,14 @@ def _bn_folded(bn: layers.BatchNorm, x: torch.Tensor, n_valid: int,
 
 
 def _folded_stack(block, x: torch.Tensor, *, grid: tuple[int, int, int], n_valid: int,
-                  start_phase: int = 0) -> torch.Tensor:
+                  cd: torch.dtype | None = None, start_phase: int = 0) -> torch.Tensor:
     """A ConvBlock on folded data, x at `start_phase`; each conv toggles the
     phase. `grid` is the PHASE-0 grid (phase-1 tensors live at grid + 1)."""
     phase = start_phase
     for i in range(block.n_stages):
         to_phase = 1 - phase
         conv = getattr(block, f"conv{i}")
-        h = folded_conv3(x, conv.w, conv.b, to_phase=to_phase)
+        h = folded_conv3(x, conv.w, conv.b, to_phase=to_phase, compute_dtype=cd)
         masks = (phase1_lane_masks(tuple(g + 1 for g in grid), conv.w.shape[4], device=x.device)
                  if to_phase == 1 else None)
         x = layers.relu(_bn_folded(getattr(block, f"bn{i}"), h, n_valid, masks))
@@ -79,18 +79,19 @@ def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
     _, D, H, W, _ = x.shape
     if D % 16 or H % 16 or W % 16:
         raise ValueError(f"spatial dims {(D, H, W)} must be divisible by 16")
-    train, rate = net.training, net.cfg.dropout_rate
+    train, rate, cd = net.training, net.cfg.dropout_rate, net.cfg.compute_dtype
     g0 = (D // 2, H // 2, W // 2)  # L0 folded grid (phase 0)
     g1 = tuple(g // 2 for g in g0)  # L1 folded grid
     n0 = D * H * W
     n1 = n0 // 8
 
     # folded encoder: L0 (enc0 + down0) and L1 (enc1 + down1)
-    s0 = _folded_stack(net.enc0, fold2_phase1(x), grid=g0, n_valid=n0, start_phase=1)
-    h = strided_conv2_folded(s0, net.down0.conv.w, net.down0.conv.b)
+    s0 = _folded_stack(net.enc0, fold2_phase1(x), grid=g0, n_valid=n0, cd=cd, start_phase=1)
+    h = strided_conv2_folded(s0, net.down0.conv.w, net.down0.conv.b, compute_dtype=cd)
     h = layers.relu(_bn_folded(net.down0.bn, h, n1))
-    s1 = _folded_stack(net.enc1, h, grid=g1, n_valid=n1)
-    h = strided_conv2_folded(s1, net.down1.conv.w, net.down1.conv.b, fold_output=False)
+    s1 = _folded_stack(net.enc1, h, grid=g1, n_valid=n1, cd=cd)
+    h = strided_conv2_folded(s1, net.down1.conv.w, net.down1.conv.b, compute_dtype=cd,
+                             fold_output=False)
     h = layers.relu(net.down1.bn(h))  # unfolded L2
 
     # plain middle: enc2..enc4 (+ down2, down3), dec0, dec1 (+ up0, up1)
@@ -103,20 +104,23 @@ def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
     center = layers.dropout(h, rate, generator, train)
     h = center
     for lvl in (0, 1):
-        h = getattr(net, f"up{lvl}")(h) + skips[1 - lvl]
-        h = getattr(net, f"dec{lvl}")(h)
+        h = getattr(net, f"up{lvl}")(h)
+        h = getattr(net, f"dec{lvl}")(h + skips[1 - lvl].to(h.dtype))
 
     # folded decoder: up2 / dec2 (L1), up3 / dec3 (L0)
-    h = transposed_conv2_to_folded(h, net.up2.conv.w, net.up2.conv.b)
-    h = layers.relu(_bn_folded(net.up2.bn, h, n1)) + s1
-    h = _folded_stack(net.dec2, h, grid=g1, n_valid=n1)
-    h = transposed_conv2_to_folded(unfold2(h), net.up3.conv.w, net.up3.conv.b)
-    h = layers.relu(_bn_folded(net.up3.bn, h, n0)) + s0
-    h = _folded_stack(net.dec3, h, grid=g0, n_valid=n0)  # ends at phase 1, grid g0 + 1
+    h = transposed_conv2_to_folded(h, net.up2.conv.w, net.up2.conv.b, compute_dtype=cd)
+    h = layers.relu(_bn_folded(net.up2.bn, h, n1))
+    h = _folded_stack(net.dec2, h + s1.to(h.dtype), grid=g1, n_valid=n1, cd=cd)
+    h = transposed_conv2_to_folded(unfold2(h), net.up3.conv.w, net.up3.conv.b, compute_dtype=cd)
+    h = layers.relu(_bn_folded(net.up3.bn, h, n0))
+    # ends at phase 1, grid g0 + 1
+    h = _folded_stack(net.dec3, h + s0.to(h.dtype), grid=g0, n_valid=n0, cd=cd)
     h = layers.dropout(h, rate, generator, train)
 
-    seg = unfold2_phase1(conv1x1_folded(h, net.out_conv.w, net.out_conv.b)).to(torch.float32)
-    sdf = torch.tanh(unfold2_phase1(conv1x1_folded(h, net.out_conv_sdf.w, net.out_conv_sdf.b))
-                     .to(torch.float32))
+    def head(conv):
+        return unfold2_phase1(conv1x1_folded(h, conv.w, conv.b, cd)).to(torch.float32)
+
+    seg = head(net.out_conv)
+    sdf = torch.tanh(head(net.out_conv_sdf))
     features = projection_head(net, center) if with_projection else None
     return sdf, seg, features

@@ -1,5 +1,6 @@
 // K1: the fold-2 3^3 SAME conv as a dense 2^3-tap conv over the folded grid,
-// on Hopper's tensor cores in three TF32 passes.
+// on Hopper's tensor cores: the float32 instance in three TF32 passes, the
+// bfloat16 instance (K1-bf16, at the end of this file) in one bf16 pass.
 //
 // Replaces: dycon_paper_replication_tpu/ops/folded_conv_pallas.py,
 // folded_conv3_pallas (body _kernel), the TPU kernel that the JAX package
@@ -80,6 +81,28 @@
 //     one slot (75 KB) and no separate stage sums, two blocks per SM, so
 //     one block's loads and mma overlap another's y stores.
 //
+// K1-bf16 (dycon_folded_conv3_bf16) is the same function on bf16 operands,
+// as the Pallas kernel computes it under the JAX package's bfloat16 compute
+// dtype: the sums in float32, y stored as bf16, rounded to nearest even. As
+// a GEMM it does 2 M N K FLOPs once, on the bf16 tensor cores (989 TFLOP/s
+// dense on an H100 SXM), and moves half the bytes; the operation bound is
+// the larger at every shape but L_in = 8. Its design is the float32
+// instance's with three changes:
+//   * One m16n8k16 bf16 mma.sync per product, no hi/lo split: the products
+//     of two bf16 values are exact in float32. The stage sums stay (the
+//     tensor core does not round its sums to nearest).
+//   * A k16 step is two taps of 8 lanes: a staged voxel row of 8 bf16 lanes
+//     is 16 bytes, one cp.async and one ldmatrix row, and ldmatrix takes a
+//     row address per lane, so the A fragment's k 0-7 come from tap 2p at
+//     its row offset and k 8-15 from tap 2p + 1 at its own (any offset:
+//     the halo rows are unpadded and consecutive, so each 8x8 matrix reads
+//     128 contiguous bytes). wgmma still cannot follow the one-row offsets.
+//     L_in = 8 (conv1.conv1, the VNet's enc0) works the same way: one stage.
+//   * wf's B fragments come from its N-major rows by ldmatrix.trans; a wf
+//     row of 128 lanes is padded to 136 bf16 (272 bytes), so the 8 rows of
+//     each matrix fall in 32 different banks.
+// A simple kernel that is right: nothing of it is tuned yet.
+//
 // Design variants for scripts/k1_variants.py, never defined by the port's
 // own build (ops/_build.py): K1_ONE_PASS (hi_a*hi_b only), K1_TAP_SUMS (a
 // fresh sum per tap and 16 x 8 piece), K1_RUNNING_SUM (no fresh sums),
@@ -87,6 +110,7 @@
 // one tap per stage: the traffic of a per-tap gather).
 
 #include "tf32_mma.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -375,6 +399,205 @@ cudaError_t launch_k1(const float* x, const float* wf, float* y, int B, int G1, 
   return cudaGetLastError();
 }
 
+// ---- K1-bf16 -------------------------------------------------------------
+
+constexpr int H_LDB = BN + 8;                       // bf16 per staged wf row
+constexpr int H_A_ELEMS = 2 * HR_MAX * BK;          // the halo, unpadded rows of 8 lanes
+constexpr int H_STAGE_ELEMS = H_A_ELEMS + 8 * BK * H_LDB;
+constexpr int H_TABLE_BYTES = 2 * HR_MAX * 8;       // the halo's row table, an int64 a row
+
+constexpr int smem_bytes_bf16(int slots) { return H_TABLE_BYTES + slots * H_STAGE_ELEMS * 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The float32 kernel's tiles, halo, row table and ring; one bf16 m16n8k16
+// per (16-row tile, 8-lane piece, tap pair) of a stage.
+template <int STAGES, int MIN_BLOCKS, bool STAGE_SUMS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+folded_conv3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ wf, __nv_bfloat16* __restrict__ y,
+                         int G1, int G2, int G3, int Lin, int Lout, int Q1, int Q2, int Q3,
+                         int off, int SW, int mtiles) {
+  constexpr int MT = BM / 32;  // 16-row tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  int64_t* rowoff = reinterpret_cast<int64_t*>(smem_bf16);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_bf16 + H_TABLE_BYTES);
+
+  const int tid = threadIdx.x;
+  const int Wv = SW + 1;
+  const int HR = BM + Wv + 1;
+  const int seg = blockIdx.x / mtiles;
+  const int m0 = (blockIdx.x - seg * mtiles) * BM;
+  const int w0 = seg * SW;
+  const int n0 = blockIdx.y * BN;
+  const int bq = blockIdx.z;  // b * Q1 + qd
+  const int b = bq / Q1;
+  const int qd = bq - b * Q1;
+
+  for (int i = tid; i < 2 * HR; i += NT) {
+    const int td = i >= HR;
+    const int p = m0 + i - td * HR;
+    const int hp = p / Wv;
+    const int id = qd + td + off, ih = hp + off, iw = w0 + (p - hp * Wv) + off;
+    const bool in = unsigned(id) < unsigned(G1) && unsigned(ih) < unsigned(G2) &&
+                    unsigned(iw) < unsigned(G3);
+    rowoff[i] = in ? ((int64_t(b) * G1 + id) * G2 + ih) * int64_t(G3) * Lin + int64_t(iw) * Lin
+                   : int64_t(-1);
+  }
+  __syncthreads();
+
+  const int nstages = Lin / BK;
+  auto tap_offset = [&](int tap) { return (tap >> 2) * HR + ((tap >> 1) & 1) * Wv + (tap & 1); };
+
+  auto load_stage = [&](int slot, int s) {
+    __nv_bfloat16* As = ring + slot * H_STAGE_ELEMS;
+    __nv_bfloat16* Bs = As + H_A_ELEMS;
+    const int k0 = s * BK;
+    // the halo: 2 HR rows of 8 lanes, one 16-byte copy each
+    for (int i = tid; i < 2 * HR; i += NT) {
+      const int64_t o = rowoff[i];
+      cp_async16(smem_u32(As + i * BK), o >= 0 ? x + o + k0 : x, o >= 0);
+    }
+    // wf: row (tap, kk) = wf[tap, k0 + kk, n0 .. n0 + 128], 16 copies each
+#pragma unroll
+    for (int j = 0; j < 8 * BK * BN / 8 / NT; ++j) {
+      const int i = tid + NT * j;
+      const int row = i >> 4, c = i & 15;
+      cp_async16(smem_u32(Bs + row * H_LDB + 8 * c),
+                 wf + (int64_t(row >> 3) * Lin + k0 + (row & 7)) * Lout + n0 + 8 * c, true);
+    }
+  };
+
+  // warp (wm, wn) owns rows wm .. wm + BM / 2 and lanes wn .. wn + 32; for
+  // ldmatrix, lane (lm, lr) = (lane / 8, lane % 8) gives row lr of matrix lm
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int lm = lane >> 3;
+  const int lr = lane & 7;
+  const int wm = (warp & 1) * (BM / 2);
+  const int wn = (warp >> 1) * 32;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // Taps 2 p (k 0-7) and 2 p + 1 (k 8-15) as one k16 step. A: matrices
+  // (rows 0-7 | 8-15) x (tap 2p | 2p + 1), each at its tap's row offset.
+  // B: matrices (tap 2p | 2p + 1) x (piece 2 jj | 2 jj + 1), transposed.
+  auto mma_pair = [&](const __nv_bfloat16* As, const __nv_bfloat16* Bs, int pair,
+                      float (&d)[MT][4][4]) {
+    const int ta = 2 * pair, tb = ta + 1;
+    uint32_t bfr[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      uint32_t r[4];
+      const int krow = ((lm & 1) ? tb : ta) * BK + lr;
+      ldsm_x4_trans(r, smem_u32(Bs + krow * H_LDB + wn + 8 * (2 * jj + (lm >> 1))));
+      bfr[2 * jj][0] = r[0];
+      bfr[2 * jj][1] = r[1];
+      bfr[2 * jj + 1][0] = r[2];
+      bfr[2 * jj + 1][1] = r[3];
+    }
+    const int o = tap_offset((lm >> 1) ? tb : ta);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t a[4];
+      ldsm_x4(a, smem_u32(As + (wm + 16 * i + 8 * (lm & 1) + lr + o) * BK));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float (&c)[4] = STAGE_SUMS ? d[i][j] : acc[i][j];
+        mma_bf16(c, a, bfr[j]);
+      }
+    }
+  };
+
+  auto compute_stage = [&](int slot) {
+    const __nv_bfloat16* As = ring + slot * H_STAGE_ELEMS;
+    const __nv_bfloat16* Bs = As + H_A_ELEMS;
+    float d[MT][4][4];
+    if constexpr (STAGE_SUMS) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
+    }
+#pragma unroll
+    for (int pair = 0; pair < 4; ++pair) mma_pair(As, Bs, pair, d);
+    if constexpr (STAGE_SUMS) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+    }
+  };
+
+  // the float32 kernel's ring, without the split step
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nstages) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nstages; ++k) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = k + STAGES - 1;
+    if (next < nstages) load_stage(next % STAGES, next);
+    cp_async_commit();
+    compute_stage(k % STAGES);
+  }
+  cp_async_wait<0>();
+
+  // c0, c1 at (row g, lanes 2 t4, 2 t4 + 1); c2, c3 at row g + 8; rounded
+  // to bf16 to nearest even, two lanes a 4-byte store
+  const int64_t ybase = int64_t(bq) * Q2;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + 16 * i + g + 8 * half;
+      const int qh = m / Wv;
+      const int c = m - qh * Wv;
+      const int qw = w0 + c;
+      if (qh >= Q2 || c >= SW || qw >= Q3) continue;
+      __nv_bfloat16* yr = y + ((ybase + qh) * Q3 + qw) * Lout + n0 + wn + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(yr + 8 * j) =
+            pack_bf16_rn(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+    }
+  }
+}
+
+template <int STAGES, int MIN_BLOCKS, bool STAGE_SUMS>
+cudaError_t launch_k1_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wf, __nv_bfloat16* y,
+                           int B, int G1, int G2, int G3, int Lin, int Lout, int Q1, int Q2,
+                           int Q3, int off, cudaStream_t st) {
+  const int stages = Lin / BK;
+  const int bytes = smem_bytes_bf16(stages < STAGES ? stages : STAGES);
+  const cudaError_t err =
+      cudaFuncSetAttribute(folded_conv3_bf16_kernel<STAGES, MIN_BLOCKS, STAGE_SUMS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nseg = (Q3 + SEG - 1) / SEG;
+  const int SW = (Q3 + nseg - 1) / nseg;
+  const int mtiles = (Q2 * (SW + 1) + BM - 1) / BM;
+  const dim3 grid(nseg * mtiles, Lout / BN, B * Q1);
+  folded_conv3_bf16_kernel<STAGES, MIN_BLOCKS, STAGE_SUMS><<<grid, NT, bytes, st>>>(
+      x, wf, y, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, SW, mtiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (B, G1, G2, G3, Lin) float32, wf: (2, 2, 2, Lin, Lout) float32,
@@ -395,5 +618,23 @@ extern "C" int dycon_folded_conv3_f32(const void* x, const void* wf, void* y, in
       Lin == BK
           ? launch_k1<2, 2, false>(xf, wff, yf, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st)
           : launch_k1<3, 1, true>(xf, wff, yf, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st);
+  return static_cast<int>(err);
+}
+
+// The same function and contract on bf16 x, wf and y (K1-bf16).
+extern "C" int dycon_folded_conv3_bf16(const void* x, const void* wf, void* y, int B, int G1,
+                                       int G2, int G3, int Lin, int Lout, int to_phase,
+                                       void* stream) {
+  const int step = to_phase == 1 ? 1 : -1;
+  const int off = to_phase == 1 ? -1 : 0;
+  const int Q1 = G1 + step, Q2 = G2 + step, Q3 = G3 + step;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wf);
+  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+  const cudaError_t err =
+      Lin == BK
+          ? launch_k1_bf16<2, 2, false>(xb, wb, yb, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st)
+          : launch_k1_bf16<3, 1, true>(xb, wb, yb, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st);
   return static_cast<int>(err);
 }

@@ -4,12 +4,19 @@ autograd Function over both, and their plain PyTorch versions.
 Counterpart of dycon_paper_replication_tpu/ops/folded_conv_pallas.py:
 `folded_conv3_pallas` (K1) and the custom VJP `_conv_wf` / `_conv_wf_bwd` /
 `_dwf` (FoldedConv3Fn, with K1-dW for the weight half). The kernels are CUDA
-C++ for sm_90a in `csrc/folded_conv3.cu` and `csrc/folded_conv3_dw.cu`, both
-on the tensor cores in three TF32 passes with the helpers of
-`csrc/tf32_mma.cuh`; each header says what bounds it on an H100 and what the
-design does about that.
-They are built with nvcc at first use and bound with ctypes (see
-`_build.py`).
+C++ for sm_90a in `csrc/folded_conv3.cu` and `csrc/folded_conv3_dw.cu`, each
+with two instances: float32 on the tensor cores in three TF32 passes (the
+helpers of `csrc/tf32_mma.cuh`) and bfloat16 in one bf16 pass
+(`csrc/bf16_mma.cuh`); each header says what bounds it on an H100 and what
+the design does about that. They are built with nvcc at first use and bound
+with ctypes (see `_build.py`).
+
+Operands are both float32 or both bfloat16, never mixed (a TypeError; the
+JAX package casts x and wf to the compute dtype before its kernel). In
+bfloat16, as the Pallas kernel and `_conv_wf_bwd` compute it: y and dx
+are summed in float32 and stored as bfloat16; dwf is summed in float32 from
+the bfloat16 values and rounded to bfloat16 to nearest even
+(`_dwf(...).astype(wf.dtype)`).
 
 `folded_conv3(x, wf, to_phase=...)` computes exactly
 `folding.folded_conv3` without the bias:
@@ -20,7 +27,9 @@ with wf = fold_conv3_weights(w), shape (2, 2, 2, L_in, L_out).
 A CPU tensor goes to `folded_conv3_plain`, an `F.conv3d` over the
 NCDHW-permuted folded tensor. A CUDA tensor launches the kernel or raises;
 there is no fallback. `folded_conv3.launches` counts kernel launches, and
-`folded_conv3_dx.launches` those of the same kernel for a backward's dx.
+`folded_conv3_dx.launches` those of the same kernel for a backward's dx;
+`by_dtype` holds the same counts per instance (torch.float32,
+torch.bfloat16), so a run can show which instance ran.
 
 `folded_conv3_dw(x, dy, to_phase=...)` is the weight gradient of that conv,
 dwf[t] = sum_q x[q + off + t] (x) dy[q] with off = -1 (to_phase=1) or 0;
@@ -44,14 +53,46 @@ SOURCE = _build.CSRC / "folded_conv3.cu"
 DW_SOURCE = _build.CSRC / "folded_conv3_dw.cu"
 
 
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_operand_dtypes(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
+    """The common dtype of a kernel's two operands: both float32 or both
+    bfloat16, else TypeError (mixed operands are never upcast)."""
+    if a.dtype != b.dtype or a.dtype not in DTYPES:
+        raise TypeError(f"{name}: operands must be both float32 or both bfloat16, got "
+                        f"{a.dtype} and {b.dtype}")
+    return a.dtype
+
+
+def cast_operands(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype | None):
+    """A conv's (x, w) in `compute_dtype`, or w in x's dtype when it is None
+    (the JAX layers' casts)."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    return x, w.to(x.dtype)
+
+
+def library_conv(fn, x: torch.Tensor, w: torch.Tensor, **kwargs) -> torch.Tensor:
+    """fn (F.conv3d or F.conv_transpose3d) of x and w, in their dtype. A
+    bfloat16 conv on the CPU is computed in float32 from the bfloat16 values
+    and rounded once, which is what a bfloat16 conv computes (exact
+    products, float32 sums; its gradients rounded the same way through the
+    casts): oneDNN's own bfloat16 conv3d weight gradient returned
+    non-finite values in PyTorch 2.11 on an x86 host (256 channels over a
+    2 x 2 x 1 input, the VNet's centre), which PyTorch 2.13 does not."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return fn(x.float(), w.float(), **kwargs).to(x.dtype)
+    return fn(x, w, **kwargs)
+
+
 def folded_conv3_plain(x: torch.Tensor, wf: torch.Tensor, *, to_phase: int) -> torch.Tensor:
     """The same function through F.conv3d: (B,G1,G2,G3,Li) x (2,2,2,Li,Lo)
-    -> (B,Q1,Q2,Q3,Lo), padding 1 (to_phase=1) or 0 (to_phase=0)."""
-    y = F.conv3d(
-        x.permute(0, 4, 1, 2, 3),
-        wf.permute(4, 3, 0, 1, 2),
-        padding=1 if to_phase == 1 else 0,
-    )
+    -> (B,Q1,Q2,Q3,Lo), padding 1 (to_phase=1) or 0 (to_phase=0), in the
+    operands' dtype (a bfloat16 conv sums in float32 and rounds once; on
+    the CPU through library_conv)."""
+    y = library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2),
+                     padding=1 if to_phase == 1 else 0)
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -69,20 +110,38 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-class FoldedConv3:
-    """The K1 wrapper: checks its operands, allocates the output, launches
-    on the current stream and counts launches."""
+class _Counted:
+    """Launch counts of a wrapper, per dtype instance in `by_dtype`;
+    `launches` is their sum, and setting it to 0 clears them all."""
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
+        self.by_dtype = dict.fromkeys(DTYPES, 0)
+        self._fns = {}
 
-    def _kernel(self):
-        if self._fn is None:
-            self._fn = _build.function(SOURCE, "dycon_folded_conv3_f32",
-                                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                                       + [ctypes.c_void_p])
-        return self._fn
+    @property
+    def launches(self) -> int:
+        return sum(self.by_dtype.values())
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n != 0:
+            raise ValueError("launch counts are only reset, to 0")
+        self.by_dtype = dict.fromkeys(DTYPES, 0)
+
+    def _function(self, src, stem: str, dtype: torch.dtype, argtypes: list):
+        if dtype not in self._fns:
+            self._fns[dtype] = _build.function(src, f"{stem}_{DTYPES[dtype]}", argtypes)
+        return self._fns[dtype]
+
+
+class FoldedConv3(_Counted):
+    """The K1 wrapper: checks its operands, allocates the output, launches
+    the instance of the operands' dtype on the current stream and counts
+    launches."""
+
+    def _kernel(self, dtype: torch.dtype):
+        return self._function(SOURCE, "dycon_folded_conv3", dtype,
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
     def __call__(self, x: torch.Tensor, wf: torch.Tensor, *, to_phase: int) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -95,8 +154,7 @@ class FoldedConv3:
         if x.device.type != "cuda" or wf.device != x.device:
             raise ValueError(f"folded_conv3: x and wf must be on one CUDA device, got "
                              f"{x.device} and {wf.device}")
-        if x.dtype != torch.float32 or wf.dtype != torch.float32:
-            raise TypeError(f"folded_conv3: float32 only, got {x.dtype} and {wf.dtype}")
+        dtype = check_operand_dtypes("folded_conv3", x, wf)
         if to_phase not in (0, 1):
             raise ValueError(f"folded_conv3: to_phase must be 0 or 1, got {to_phase}")
         if x.dim() != 5 or wf.dim() != 5 or tuple(wf.shape[:3]) != (2, 2, 2):
@@ -111,14 +169,14 @@ class FoldedConv3:
         if min(q) < 1 or b * q[0] > 65535:
             raise ValueError(f"folded_conv3: grid {tuple(x.shape[:4])} out of range")
         _check_dense("folded_conv3", x, wf)
-        y = torch.empty((b, *q, lout), device=x.device, dtype=torch.float32)
+        y = torch.empty((b, *q, lout), device=x.device, dtype=dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = self._kernel()(x.data_ptr(), wf.data_ptr(), y.data_ptr(),
-                                 b, g1, g2, g3, lin, lout, to_phase, stream)
+            err = self._kernel(dtype)(x.data_ptr(), wf.data_ptr(), y.data_ptr(),
+                                      b, g1, g2, g3, lin, lout, to_phase, stream)
         if err != 0:
             raise RuntimeError(f"folded_conv3: kernel launch failed, cudaError {err}")
-        self.launches += 1
+        self.by_dtype[dtype] += 1
         return y
 
 
@@ -129,13 +187,16 @@ folded_conv3_dx = FoldedConv3()
 
 def folded_conv3_dw_plain(x: torch.Tensor, dy: torch.Tensor, *, to_phase: int) -> torch.Tensor:
     """The weight gradient as the JAX package's `_dwf` computes it: eight
-    einsums of a tap-shifted slab of x against dy. x (B, G1, G2, G3, Li),
-    dy (B, Q1, Q2, Q3, Lo) -> dwf (2, 2, 2, Li, Lo), in x's dtype."""
+    einsums of a tap-shifted slab of x against dy, in float32 (float64 for
+    float64 operands), then in x's dtype. x (B, G1, G2, G3, Li), dy (B, Q1,
+    Q2, Q3, Lo) -> dwf (2, 2, 2, Li, Lo)."""
     q1, q2, q3 = dy.shape[1:4]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     xs = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)) if to_phase == 1 else x
-    taps = [torch.einsum("bdhwa,bdhwn->an", xs[:, td:td + q1, th:th + q2, tw:tw + q3], dy)
+    xs, dyf = xs.to(acc), dy.to(acc)
+    taps = [torch.einsum("bdhwa,bdhwn->an", xs[:, td:td + q1, th:th + q2, tw:tw + q3], dyf)
             for td, th, tw in itertools.product(range(2), repeat=3)]
-    return torch.stack(taps).reshape(2, 2, 2, x.shape[-1], dy.shape[-1])
+    return torch.stack(taps).reshape(2, 2, 2, x.shape[-1], dy.shape[-1]).to(x.dtype)
 
 
 # K1-dW's launch shape (csrc/folded_conv3_dw.cu): 128-lane column tiles,
@@ -168,20 +229,14 @@ def dw_splits(n_voxels: int, tiles: int, sms: int) -> tuple[int, int]:
     return -(-n_voxels // chunk), chunk
 
 
-class FoldedConv3Dw:
+class FoldedConv3Dw(_Counted):
     """The K1-dW wrapper: checks its operands, allocates the output and the
-    split-K workspace, launches on the current stream and counts launches."""
+    split-K workspace, launches the instance of the operands' dtype on the
+    current stream and counts launches."""
 
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def _kernel(self):
-        if self._fn is None:
-            self._fn = _build.function(DW_SOURCE, "dycon_folded_conv3_dw_f32",
-                                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                                       + [ctypes.c_void_p])
-        return self._fn
+    def _kernel(self, dtype: torch.dtype):
+        return self._function(DW_SOURCE, "dycon_folded_conv3_dw", dtype,
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
     def __call__(self, x: torch.Tensor, dy: torch.Tensor, *, to_phase: int) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -194,8 +249,7 @@ class FoldedConv3Dw:
         if x.device.type != "cuda" or dy.device != x.device:
             raise ValueError(f"folded_conv3_dw: x and dy must be on one CUDA device, got "
                              f"{x.device} and {dy.device}")
-        if x.dtype != torch.float32 or dy.dtype != torch.float32:
-            raise TypeError(f"folded_conv3_dw: float32 only, got {x.dtype} and {dy.dtype}")
+        dtype = check_operand_dtypes("folded_conv3_dw", x, dy)
         if to_phase not in (0, 1):
             raise ValueError(f"folded_conv3_dw: to_phase must be 0 or 1, got {to_phase}")
         if x.dim() != 5 or dy.dim() != 5:
@@ -215,14 +269,15 @@ class FoldedConv3Dw:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits, chunk = dw_splits(n_voxels, tiles, sms)
         ws = torch.empty((splits, 8 * lin, lout), device=x.device, dtype=torch.float32)
-        dwf = torch.empty((2, 2, 2, lin, lout), device=x.device, dtype=torch.float32)
+        dwf = torch.empty((2, 2, 2, lin, lout), device=x.device, dtype=dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = self._kernel()(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dwf.data_ptr(),
-                                 b, g1, g2, g3, lin, lout, to_phase, splits, chunk, stream)
+            err = self._kernel(dtype)(x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                                      dwf.data_ptr(), b, g1, g2, g3, lin, lout, to_phase,
+                                      splits, chunk, stream)
         if err != 0:
             raise RuntimeError(f"folded_conv3_dw: kernel launch failed, cudaError {err}")
-        self.launches += 1
+        self.by_dtype[dtype] += 1
         return dwf
 
 
@@ -238,7 +293,8 @@ class FoldedConv3Fn(torch.autograd.Function):
             its L_in of 8 is no K1 output width);
       dwf = folded_conv3_dw(x, dy, to_phase).
     On a CPU tensor both are the plain versions; on a CUDA tensor K1 and
-    K1-dW, or an error."""
+    K1-dW, or an error. x and wf share their dtype (float32 or bfloat16),
+    and so do dx and dwf."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, wf: torch.Tensor, to_phase: int) -> torch.Tensor:

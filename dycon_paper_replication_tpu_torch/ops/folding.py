@@ -33,6 +33,13 @@ The VNet's fold-2 ops (models/vnet_folded.py) sit beside the UNet's:
 stacks of odd length), the strided and transposed 2^3 resamplers, each one
 dense product per folded block, and `batch_norm_folded`. They are plain
 torch, as their JAX counterparts are plain XLA outside any Pallas kernel.
+
+`compute_dtype` (None or a torch dtype) is the JAX package's: the convs
+cast their input and their weight to it and emit it, and each bias is cast
+to the output's dtype before it is added (in bfloat16 the products sum in
+float32 and round once; a bfloat16 tensor plus a float32 bias would be
+float32 in torch, which is why the cast is explicit). The norms take float32
+statistics and return the input's dtype.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import resize
-from .folded_conv_cuda import FoldedConv3Fn
+from .folded_conv_cuda import FoldedConv3Fn, cast_operands
 
 _SUBS = 8  # 2*2*2 sub-positions per folded block
 
@@ -94,16 +101,18 @@ def fold_bias(b: torch.Tensor) -> torch.Tensor:
 
 
 def folded_conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
-                 to_phase: int) -> torch.Tensor:
+                 to_phase: int, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One 3^3 SAME conv on folded data.
 
     x: (B, G1, G2, G3, 8Ci), phase-0 if to_phase == 1, phase-1 if 0.
     w: the UNFOLDED (3, 3, 3, Ci, Co) kernel; b: (Co,) or None.
-    Returns phase-1 at grid G+1 (to_phase=1) or phase-0 at grid G-1."""
-    wf = fold_conv3_weights(w).contiguous()
-    y = FoldedConv3Fn.apply(x.contiguous(), wf, to_phase)
+    Returns phase-1 at grid G+1 (to_phase=1) or phase-0 at grid G-1, in
+    `compute_dtype` (x's dtype when None). The weight is folded in its own
+    dtype, then cast, as `folded_conv3_via_pallas` does."""
+    x, wf = cast_operands(x, fold_conv3_weights(w), compute_dtype)
+    y = FoldedConv3Fn.apply(x.contiguous(), wf.contiguous(), to_phase)
     if b is not None:
-        y = y + fold_bias(b)
+        y = y + fold_bias(b).to(y.dtype)
     return y
 
 
@@ -188,16 +197,18 @@ def upsample2x_folded(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def conv1x1_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+def conv1x1_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """1^3 conv on a folded tensor, per sub-position: x (B, G1, G2, G3, 8Ci),
     w (1, 1, 1, Ci, Co) -> (B, G1, G2, G3, 8Co), class-major lanes."""
     b_, g1, g2, g3, l = x.shape
     ci = l // _SUBS
+    x, w = cast_operands(x, w, compute_dtype)
     y = torch.einsum("bdhwcs,cn->bdhwns", x.reshape(b_, g1, g2, g3, ci, _SUBS),
                      w.reshape(ci, -1))
     y = y.reshape(b_, g1, g2, g3, -1)
     if b is not None:
-        y = y + fold_bias(b)
+        y = y + fold_bias(b).to(y.dtype)
     return y
 
 
@@ -218,6 +229,7 @@ def unfold2_phase1(x: torch.Tensor) -> torch.Tensor:
 
 
 def strided_conv2_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
+                         compute_dtype: torch.dtype | None = None,
                          fold_output: bool = True) -> torch.Tensor:
     """2^3 stride-2 conv of a phase-0 folded tensor.
 
@@ -226,15 +238,16 @@ def strided_conv2_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | Non
     Ci, Co) DHWIO -> the half-resolution output (B, G1, G2, G3, Co), or
     refolded phase-0 (B, G1/2, G2/2, G3/2, 8Co) with `fold_output`."""
     ci = x.shape[-1] // _SUBS
+    x, w = cast_operands(x, w, compute_dtype)
     # lane k = c * 8 + (qd * 4 + qh * 2 + qw)  ->  W[(c, q), co] = w[q, c, co]
     y = x @ w.permute(3, 0, 1, 2, 4).reshape(ci * _SUBS, -1)
     if b is not None:
-        y = y + b
+        y = y + b.to(y.dtype)
     return fold2(y) if fold_output else y
 
 
-def transposed_conv2_to_folded(x: torch.Tensor, w: torch.Tensor,
-                               b: torch.Tensor | None) -> torch.Tensor:
+def transposed_conv2_to_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
+                               compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Transposed 2^3 stride-2 conv with FOLDED phase-0 output.
 
     Each input voxel emits one whole 2x2x2 output block, one phase-0 folded
@@ -243,9 +256,10 @@ def transposed_conv2_to_folded(x: torch.Tensor, w: torch.Tensor,
     Output sub-position p takes tap 1 - p: the JAX layer's
     lax.conv_transpose (transpose_kernel=False) mirrors the kernel."""
     ci = x.shape[-1]
+    x, w = cast_operands(x, w, compute_dtype)
     y = x @ w.flip(0, 1, 2).permute(3, 4, 0, 1, 2).reshape(ci, -1)
     if b is not None:
-        y = y + fold_bias(b)
+        y = y + fold_bias(b).to(y.dtype)
     return y
 
 

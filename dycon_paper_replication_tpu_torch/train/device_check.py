@@ -33,7 +33,11 @@ alpha 0.5; the momentum starts at zero.
     parameters and momentum by at most 0.64x); at (32, 32, 32), 32 values,
     by at most 0.87x (tests/test_torch_device_check.py). ASPP's own dropout
     (rate 0.5, fixed, as in the JAX layer) draws its masks with numpy in
-    call order, the same on both steps (`shared_dropout`).
+    call order, the same on both steps (`shared_dropout`);
+  * "pancreas_bf16" and "vnet_bf16" (BF16_CONFIGS): the "pancreas" and
+    "vnet" cases with `compute_dtype` bfloat16 (K1-bf16, its dx and
+    K1-dW-bf16 on the card, the same launch counts), the Pancreas one at
+    patch (32, 32, 32), with the tolerances below.
 
 Kink sides. A step has kinks: its ReLUs, its max pools (which of a
 block's 8 values is the largest) and FeCL's cross threshold
@@ -70,6 +74,24 @@ followed by a norm, whose true gradient is 0, its conv weight's P.
   * momentum: 5e-3 x P; parameters and teacher parameters: 5e-3 x lr x P
     plus 2 ulp of the leaf's largest magnitude;
   * BatchNorm running stats: rtol 1e-4, atol 1e-5.
+In the bfloat16 cases each of these becomes max(it, BF16_K x the same
+leaf's max |CPU bfloat16 step - CPU float64 step|), BF16_K = 4, and a step
+scalar also takes two bfloat16 ulps of its value (2^-8 |value|): the rule of
+tests/test_torch_bf16_train.py. A third step, on the CPU in float64 (the
+same state and inputs, every conv in float64; the norms' statistics and
+the losses in float32, as the model takes them), is the yardstick of
+bfloat16's own rounding, and it too takes the card's kink sides within the
+margin. Two bfloat16 steps that differ by one ulp at 1e-3 of the folded
+conv outputs (the card's K1-bf16 and the CPU's conv round differently at
+~1e-4 of them) differ like two independent bfloat16 runs, since every norm
+rounds its output again, so a leaf's difference is a draw of that
+spread, and two guards keep the draw's tail from failing the check: a
+leaf's yardstick is at least its group's median (`bf16_comparisons`), and
+the Pancreas case runs at patch (32, 32, 32), where the centre's
+InstanceNorm spans 2 x 2 x 2 voxels (at 32 x 32 x 16, 2 x 2 x 1, the
+centre's weights reached 7.9x the yardstick at seed 5 under that noise;
+at 32^3 the worst leaf over seeds 0-5 is 1.9x, the VNet's 1.6x). Real
+faults still fail (tests/test_torch_device_check_bf16.py).
 """
 
 from __future__ import annotations
@@ -90,7 +112,7 @@ from .state import TrainState, create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
 
 PATCH = (32, 32, 16)
-PATCHES = {"aspp": (32, 32, 32)}  # the module doc says why
+PATCHES = {"aspp": (32, 32, 32), "pancreas_bf16": (32, 32, 32)}  # the module doc says why
 BATCH, LABELED = 4, 2
 SCALARS = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
 # the ISLES case's neg_thresh: cs between these two random nets' embeddings
@@ -99,29 +121,38 @@ SCALARS = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
 SCALARS_ISLES = SCALARS._replace(neg_thresh=0.05)
 CPU = torch.device("cpu")
 CONFIGS = ("pancreas", "isles22", "vnet", "aspp")
+BF16_CONFIGS = ("pancreas_bf16", "vnet_bf16")
 ISLES_FECL_CHUNK = 96
 KINK_MARGIN = 1e-2
+BF16_K = 4.0
+BF16_ULP = 2.0 ** -8
 
 
 def step_config(device: torch.device, config: str = "pancreas") -> TrainConfig:
-    if config not in CONFIGS:
-        raise ValueError(f"config {config!r} is not one of {CONFIGS}")
+    if config not in CONFIGS + BF16_CONFIGS:
+        raise ValueError(f"config {config!r} is not one of {CONFIGS + BF16_CONFIGS}")
     extra = {"isles22": dict(fecl_chunk=ISLES_FECL_CHUNK), "vnet": dict(model="vnet"),
-             "aspp": dict(use_aspp=True)}.get(config, {})
+             "aspp": dict(use_aspp=True), "vnet_bf16": dict(model="vnet")}.get(config, {})
+    if config in BF16_CONFIGS:
+        extra["compute_dtype"] = "bfloat16"
     return make_config("isles22" if config == "isles22" else "pancreas",
                        patch_size=PATCHES.get(config, PATCH),
                        batch_size=BATCH, labeled_bs=LABELED, device=torch.device(device).type,
                        **extra)
 
 
-def initial_state(seed: int, config: str = "pancreas") -> TrainState:
-    """The CPU state of the module doc."""
-    scale = step_config(CPU, config).feature_scaler
-    if config == "vnet":
-        cfg = VNetConfig(layout="folded", dropout_rate=0.0, scale_factor=scale)
+def initial_state(seed: int, config: str = "pancreas",
+                  compute_dtype: torch.dtype | None = None) -> TrainState:
+    """The CPU state of the module doc, its model computing in
+    `compute_dtype` (the config's when None)."""
+    tcfg = step_config(CPU, config)
+    scale = tcfg.feature_scaler
+    cd = compute_dtype or tcfg.torch_compute_dtype()
+    if tcfg.model == "vnet":
+        cfg = VNetConfig(layout="folded", dropout_rate=0.0, scale_factor=scale, compute_dtype=cd)
     else:
         cfg = UNet3DConfig(layout="folded", dropout_rate=0.0, scale_factor=scale,
-                           use_aspp=config == "aspp")
+                           use_aspp=config == "aspp", compute_dtype=cd)
     nets = []
     for s in (seed, seed + 1):
         net = build_model(cfg)
@@ -167,11 +198,15 @@ def make_inputs(seed: int, config: str = "pancreas") -> tuple[dict[str, np.ndarr
     return {"image": image, "label": label}, noise
 
 
-def state_on(state: TrainState, device: torch.device) -> TrainState:
-    """A copy of `state` on `device`."""
-    return TrainState(copy.deepcopy(state.student).to(device),
-                      copy.deepcopy(state.teacher).to(device),
-                      {k: v.clone().to(device) for k, v in state.momentum.items()}, state.step)
+def state_on(state: TrainState, device: torch.device,
+             dtype: torch.dtype | None = None) -> TrainState:
+    """A copy of `state` on `device` (its parameters, buffers and momentum
+    in `dtype` when given)."""
+    kw = {} if dtype is None else dict(dtype=dtype)
+    return TrainState(copy.deepcopy(state.student).to(device, **kw),
+                      copy.deepcopy(state.teacher).to(device, **kw),
+                      {k: v.clone().to(device, **kw) for k, v in state.momentum.items()},
+                      state.step)
 
 
 def run_step(state: TrainState, batch: dict[str, np.ndarray], noise: np.ndarray,
@@ -230,15 +265,46 @@ def comparisons(got: TrainState, got_scalars: np.ndarray, want: TrainState,
     return out
 
 
+def bf16_comparisons(rows: list[tuple[str, str, float, float]],
+                     yardstick: list[tuple[str, str, float, float]],
+                     scalars: np.ndarray) -> list[tuple[str, str, float, float]]:
+    """`rows` (comparisons of the card's step against the CPU's) with each
+    tolerance raised to BF16_K x the same leaf's difference in `yardstick`
+    (comparisons of the CPU bfloat16 step against the float64 one), a
+    scalar's also to BF16_ULP x `scalars` (the CPU step's value). A leaf's
+    yardstick is at least its group's median yardstick in units of the
+    float32 tolerance, times its own float32 tolerance: a leaf of a few
+    elements (a head's bias) can meet the float64 step by chance."""
+    for (group, k, _, _), (group2, k2, _, _) in zip(rows, yardstick, strict=True):
+        if (group, k) != (group2, k2):
+            raise ValueError(f"yardstick leaf {group2} {k2} against {group} {k}")
+    typical = {}
+    for group in {r[0] for r in rows} - {"scalar"}:
+        typical[group] = float(np.median([y[2] / r[3] for r, y in zip(rows, yardstick)
+                                          if r[0] == group and r[3] > 0]))
+    out = []
+    for (group, k, diff, tol), (_, _, yard, _) in zip(rows, yardstick):
+        if group == "scalar":
+            floor = BF16_ULP * abs(float(scalars[SCALAR_METRICS.index(k)]))
+        else:
+            floor, yard = 0.0, max(yard, typical[group] * tol)
+        out.append((group, k, diff, max(tol, BF16_K * yard, floor)))
+    return out
+
+
+def _lines(rows, got: TrainState, want: TrainState) -> list[str]:
+    out = [f"{group} {k}: max abs diff {diff} > {tol}" for group, k, diff, tol in rows
+           if not diff <= tol]
+    if got.step != want.step:
+        out.append(f"step {got.step} vs {want.step}")
+    return out
+
+
 def differences(got: TrainState, got_scalars: np.ndarray, want: TrainState,
                 want_scalars: np.ndarray, label: np.ndarray, lr: float) -> list[str]:
     """Each scalar or leaf of `got` outside its tolerance of `want`, as one
     line; the step counts too."""
-    out = [f"{group} {k}: max abs diff {diff} > {tol}" for group, k, diff, tol in
-           comparisons(got, got_scalars, want, want_scalars, label, lr) if not diff <= tol]
-    if got.step != want.step:
-        out.append(f"step {got.step} vs {want.step}")
-    return out
+    return _lines(comparisons(got, got_scalars, want, want_scalars, label, lr), got, want)
 
 
 def worst_by_group(rows: list[tuple[str, str, float, float]]) -> dict[str, tuple[str, float]]:
@@ -278,9 +344,10 @@ class KinkSides:
     def given(cls, relu: list, pool: list, fecl: list) -> "KinkSides":
         """Sides recorded elsewhere, in `record()`'s order and form: per
         ReLU call a bool tensor (input > 0), per max pool the argmax over
-        its blocks, per row-tiled FeCL call the (embeddings, teacher
-        embeddings) on the CPU. The port's JAX parity tests give the JAX
-        step's."""
+        its blocks (-1 for a block whose two largest values are equal:
+        record() writes it, sides from elsewhere may leave it out), per
+        row-tiled FeCL call the (embeddings, teacher embeddings) on the
+        CPU. The port's JAX parity tests give the JAX step's."""
         sides = cls()
         sides._relu, sides._pool, sides._fecl = list(relu), list(pool), list(fecl)
         return sides
@@ -298,7 +365,10 @@ class KinkSides:
             return torch.relu(x)
 
         def block_max(x, dims):
-            self._pool.append(_blocks(x.detach(), dims).argmax(dim=-1).cpu())
+            xd = _blocks(x.detach(), dims)
+            top = xd.topk(2, dim=-1).values
+            tie = top[..., 0] == top[..., 1]
+            self._pool.append(torch.where(tie, -1, xd.argmax(dim=-1)).cpu())
             return x.amax(dim=dims)
 
         def recorded(fn):
@@ -332,13 +402,18 @@ class KinkSides:
             return torch.where(side, x, torch.zeros_like(x))
 
         def block_max(x, dims):
-            # the max's kink: the two largest of a block within the margin
+            # the max's kink: the two largest of a block within the margin.
+            # A block tied on both sides (the device's side -1) keeps the
+            # max's own gradient, split evenly over the tie as on the
+            # device (in bfloat16 ties are common); a block tied on the
+            # device alone keeps its own side
             x = _blocks(x, dims)
             xd = x.detach()
             top = xd.topk(2, dim=-1).values
             own = xd.argmax(dim=-1)
-            near = self._near(top[..., 0] - top[..., 1], xd)
-            side = torch.where(near, next(pool_sides), own)
+            card = next(pool_sides)
+            near = self._near(top[..., 0] - top[..., 1], xd) & (card >= 0)
+            side = torch.where(near, card, own)
             self.counts["pool_near"] += int((near & (top[..., 0] != 0)).sum())
             self.counts["pool_taken"] += int((side != own).sum())
             return torch.where(near, x.gather(-1, side[..., None])[..., 0], x.amax(dim=-1))
@@ -393,5 +468,11 @@ def check_step(device: torch.device | str, seed: int = 0, config: str = "pancrea
     lr = step_config(device, config).base_lr
     label = batch["label"]
     rows = comparisons(got, got_scalars, want, want_scalars, label, lr)
-    return (differences(got, got_scalars, want, want_scalars, label, lr), got_scalars,
-            worst_by_group(rows), sides.counts)
+    if config in BF16_CONFIGS:
+        # the yardstick: the same step in float64 on the CPU (module doc)
+        ref = state_on(initial_state(seed, config, torch.float64), CPU, torch.float64)
+        with sides.share(), shared_dropout(seed):
+            ref_scalars = run_step(ref, batch, noise, CPU, config)
+        rows = bf16_comparisons(rows, comparisons(want, want_scalars, ref, ref_scalars, label,
+                                                  lr), want_scalars)
+    return _lines(rows, got, want), got_scalars, worst_by_group(rows), sides.counts

@@ -8,7 +8,10 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
   * the host schedules: per epoch beta and the FeCL focal thresholds, per
     iteration the consistency weight;
   * the model by `model` (unet_3D, with ASPP under `use_aspp`, or vnet),
-    student and teacher of the same build; the step (train/step.py) on the
+    student and teacher of the same build, computing in `compute_dtype`
+    (float32 or bfloat16, with float32 parameters, heads and losses and no
+    loss scaling, as in the JAX trainer; the validation runs the student
+    itself, so in the same dtype); the step (train/step.py) on the
     device, one sync per step for its scalars, timed by a StepTimer;
   * train-HD95 every `hd95_every = max(val_every // 4, 1)` iterations and at
     the first, over the whole batch against its labels (max_dist = the
@@ -139,7 +142,8 @@ class Trainer:
 
         net_cfg = model_config(cfg.model, in_chns=cfg.in_ch, class_num=cfg.num_classes,
                                scaler=cfg.feature_scaler, use_aspp=cfg.use_aspp,
-                               layout=cfg.resolved_layout(self.device))
+                               layout=cfg.resolved_layout(self.device),
+                               compute_dtype=cfg.torch_compute_dtype())
         params, state = weights.init_jax_tree(net_cfg, seed=cfg.seed)
         student = build_model(net_cfg).to(self.device)
         student.load_state_dict(weights.jax_tree_to_state_dict(params, state))

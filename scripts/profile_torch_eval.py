@@ -4,13 +4,15 @@ the GPU: the folded model (fold-2 levels through K1) and the plain model
 (cuDNN convs), full width, patch 96^3, random weights from a seed.
 
     python3 scripts/profile_torch_eval.py [--batch 4] [--reps 5]
+        [--compute_dtype float32|bfloat16]
 
 For each model it prints the wall ms per forward (CUDA events), then the
 device time per forward from torch.profiler grouped as K1, K1-dW (none in
 a forward), cuDNN/cuBLAS convs and matmuls and everything else
 (elementwise, reductions, copies; `profile_common.category`), the share of
-each, and the device's idle share of the wall time. Last line: one JSON
-object with the same numbers.
+each, and the device's idle share of the wall time. `--compute_dtype
+bfloat16` runs both models in bf16 (the folded one through K1-bf16). Last
+line: one JSON object with the same numbers.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
 
     import torch
@@ -49,9 +52,11 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     x = torch.rand(args.batch, 96, 96, 96, 1, device=device, generator=gen)
     xf = fold2(x)
-    result = {"device": torch.cuda.get_device_name(0), "batch": args.batch}
+    result = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
+              "compute_dtype": args.compute_dtype}
+    dtype = getattr(torch, args.compute_dtype)
     for layout in ("folded", "NDHWC"):
-        net = UNet3D(UNet3DConfig(layout=layout)).to(device).eval()
+        net = UNet3D(UNet3DConfig(layout=layout, compute_dtype=dtype)).to(device).eval()
         net.load_state_dict(sd)
         if layout == "folded":
             fwd = lambda: net.apply_seg_folded(xf)  # noqa: E731

@@ -8,12 +8,15 @@ fused FeCL over N = 9216 through K2), random weights and a synthetic batch
 from a seed.
 
     python3 scripts/profile_torch_train.py [--config pancreas|brats19|isles22] [--reps 3]
-        [--layout folded|NDHWC] [--model unet_3D|vnet] [--use_aspp 0|1] [--trace_dir DIR]
+        [--layout folded|NDHWC] [--model unet_3D|vnet] [--use_aspp 0|1]
+        [--compute_dtype float32|bfloat16] [--trace_dir DIR]
 
 `--layout` picks the model layout (default: the config's, "folded" on
 CUDA); NDHWC runs every level through cuDNN and never reaches K1.
 `--model vnet` profiles the VNet (n_filters 16, BatchNorm throughout, six
-folded convs), `--use_aspp 1` the UNet3D with ASPP on its bottleneck.
+folded convs), `--use_aspp 1` the UNet3D with ASPP on its bottleneck,
+`--compute_dtype bfloat16` the model computing in bf16 (K1-bf16 and
+K1-dW-bf16 at the folded levels).
 
 It prints the wall ms per step (host clock around steps that end in a
 device sync, median of --reps after 2 warm-up steps), the peak device
@@ -54,9 +57,10 @@ def main() -> int:
     ap.add_argument("--config", choices=("pancreas", "brats19", "isles22"), default="pancreas")
     ap.add_argument("--model", choices=("unet_3D", "vnet"), default="unet_3D")
     ap.add_argument("--use_aspp", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--d2h_reps", type=int, default=20)
     ap.add_argument("--trace_dir", default=None,
-                    help="default runs/profile_torch_train_<config>[_vnet][_aspp]_<layout>")
+                    help="default runs/profile_torch_train_<config>[_vnet][_aspp][_bf16]_<layout>")
     args = ap.parse_args()
 
     import numpy as np
@@ -74,9 +78,11 @@ def main() -> int:
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = make_config(args.config, device="cuda", model=args.model, use_aspp=bool(args.use_aspp))
+    cfg = make_config(args.config, device="cuda", model=args.model, use_aspp=bool(args.use_aspp),
+                      compute_dtype=args.compute_dtype)
     net_cfg = model_config(args.model, scaler=cfg.feature_scaler, use_aspp=cfg.use_aspp,
-                           layout=args.layout or cfg.resolved_layout(device))
+                           layout=args.layout or cfg.resolved_layout(device),
+                           compute_dtype=cfg.torch_compute_dtype())
     params, state = weights.init_jax_tree(net_cfg, seed=args.seed)
     student = build_model(net_cfg).to(device)
     student.load_state_dict(weights.jax_tree_to_state_dict(params, state))
@@ -111,7 +117,7 @@ def main() -> int:
     wall_ms = statistics.median(walls)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tag = args.config + ("_vnet" if args.model == "vnet" else "") + (
-        "_aspp" if args.use_aspp else "")
+        "_aspp" if args.use_aspp else "") + ("_bf16" if args.compute_dtype == "bfloat16" else "")
     trace_dir = args.trace_dir or os.path.join("runs", f"profile_torch_train_{tag}_{net_cfg.layout}")
     with trace(trace_dir) as prof:
         for _ in range(args.reps):
@@ -156,6 +162,7 @@ def main() -> int:
           f"host {hd95_ms:.1f} ms (mean {float(np.mean(hd95)):.3f})")
     print(json.dumps(dict(device=torch.cuda.get_device_name(0), config=args.config,
                           model=args.model, use_aspp=args.use_aspp, layout=net_cfg.layout,
+                          compute_dtype=args.compute_dtype,
                           wall_ms=wall_ms, walls_ms=walls,
                           device_busy_ms=busy, idle_share=idle, peak_gib=peak_gib,
                           **{f"{k}_ms": v for k, v in by_cat.items()},

@@ -5,7 +5,10 @@ against autograd of the plain folded path, one train step on CUDA against
 the same step on the CPU (the Pancreas, ISLES, VNet and ASPP cases), K2,
 the fused FeCL, against its plain twin, and the VNet's instances of K1 and
 K1-dW (L_in 8 to phase 0: its input folded at phase 1) and its folded
-model on CUDA against the CPU. Marked `cuda`; each test skips when no
+model on CUDA against the CPU; the bfloat16 instances (K1-bf16 forward and
+dx, K1-dW-bf16) against float64 convs of the same bf16 values within
+chip_smoke.py's gate, the bf16 wrappers' dtype checks and counts, and the
+bf16 step check. Marked `cuda`; each test skips when no
 GPU is present. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -23,6 +26,7 @@ from dycon_paper_replication_tpu_torch.ops import folding
 from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
     FoldedConv3,
     FoldedConv3Dw,
+    FoldedConv3Fn,
     K1ValuedPlainConvFn,
     folded_conv3,
     folded_conv3_dw,
@@ -330,3 +334,80 @@ def test_k2_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         fwd(feat.double(), mask.double(), None, opts)
     assert fwd.launches == 0
+
+
+def _bf16_gate(got, plain, ref):
+    """chip_smoke.py's bf16 gate: max|got - ref| <= max(2^-8 max|ref|, 2 x
+    the bf16 plain version's max error against ref)."""
+    err_plain = (plain.double() - ref).abs().max().item()
+    return (got.double() - ref).abs().max().item() <= max(2.0 ** -8 * ref.abs().max().item(),
+                                                          2 * err_plain)
+
+
+@pytest.mark.parametrize("to_phase", [0, 1])
+@pytest.mark.parametrize("lin,lout", [(8, 128), (136, 256), (256, 128)])
+def test_k1_bf16_matches_plain(cuda, to_phase, lin, lout):
+    """K1-bf16 forward and, through FoldedConv3Fn, its dx and K1-dW-bf16,
+    all bfloat16, against float64 convs of the same bf16 values; launches
+    counted on the bf16 instances only; reruns bit-identical. dx where its
+    output lanes, L_in, are a multiple of 128 (K1's L_out), as in the
+    models."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bf = torch.bfloat16
+    x = torch.randn(2, 5, 7, 6, lin, device=cuda, generator=g).to(bf)
+    wf = (torch.randn(2, 2, 2, lin, lout, device=cuda, generator=g) / (8 * lin) ** 0.5).to(bf)
+    k1 = FoldedConv3()
+    y, again = k1(x, wf, to_phase=to_phase), k1(x, wf, to_phase=to_phase)
+    plain = folded_conv3_plain(x, wf, to_phase=to_phase)
+    ref = folded_conv3_plain(x.double(), wf.double(), to_phase=to_phase)
+    torch.cuda.synchronize()
+    assert y.dtype == bf and k1.by_dtype == {torch.float32: 0, bf: 2} and k1.launches == 2
+    assert _bf16_gate(y, plain, ref) and torch.equal(y, again)
+
+    dy = torch.randn(y.shape, device=cuda, generator=g).to(bf)
+    with_dx = lin % 128 == 0
+    counts = [c.by_dtype[bf] for c in (folded_conv3_dx, folded_conv3_dw)]
+    xr, wr = x.clone().requires_grad_(with_dx), wf.clone().requires_grad_()
+    FoldedConv3Fn.apply(xr, wr, to_phase).backward(dy)
+    x64, w64 = x.double().requires_grad_(with_dx), wf.double().requires_grad_()
+    folded_conv3_plain(x64, w64, to_phase=to_phase).backward(dy.double())
+    if with_dx:
+        xp = x.clone().requires_grad_()
+        folded_conv3_plain(xp, wf, to_phase=to_phase).backward(dy)
+    torch.cuda.synchronize()
+    assert [c.by_dtype[bf] for c in (folded_conv3_dx, folded_conv3_dw)] == [
+        counts[0] + with_dx, counts[1] + 1]
+    assert wr.grad.dtype == bf
+    assert _bf16_gate(wr.grad, folded_conv3_dw_plain(x, dy, to_phase=to_phase), w64.grad)
+    if with_dx:
+        assert xr.grad.dtype == bf and _bf16_gate(xr.grad, xp.grad, x64.grad)
+
+
+def test_bf16_wrappers_refuse_mixed_operands(cuda):
+    bf = torch.bfloat16
+    x = torch.zeros(1, 2, 2, 2, 8, device=cuda)
+    k1, dw = FoldedConv3(), FoldedConv3Dw()
+    with pytest.raises(TypeError):
+        k1(x.to(bf), torch.zeros(2, 2, 2, 8, 128, device=cuda), to_phase=1)
+    with pytest.raises(TypeError):
+        k1(x, torch.zeros(2, 2, 2, 8, 128, device=cuda, dtype=bf), to_phase=1)
+    with pytest.raises(TypeError):
+        dw(x.to(bf), torch.zeros(1, 3, 3, 3, 128, device=cuda), to_phase=1)
+    with pytest.raises(TypeError):
+        dw(x.to(torch.float16), torch.zeros(1, 3, 3, 3, 128, device=cuda, dtype=torch.float16),
+           to_phase=1)
+    assert k1.launches == 0 == dw.launches
+
+
+@pytest.mark.parametrize("config,launches", [("pancreas_bf16", [16, 7, 8]),
+                                             ("vnet_bf16", [12, 5, 6])])
+def test_bf16_train_steps_on_cuda_match_cpu(cuda, config, launches):
+    """The bfloat16 step check (train/device_check.py): the bf16 instances
+    launched as the float32 ones are in the float32 cases, no float32 one."""
+    counters = (folded_conv3, folded_conv3_dx, folded_conv3_dw)
+    before = [dict(c.by_dtype) for c in counters]
+    diffs, _, _, _ = check_step(cuda, config=config)
+    assert diffs == []
+    for c, b, n in zip(counters, before, launches):
+        assert c.by_dtype[torch.bfloat16] - b[torch.bfloat16] == n
+        assert c.by_dtype[torch.float32] == b[torch.float32]

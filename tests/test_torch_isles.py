@@ -323,9 +323,13 @@ def test_isles_config_flags():
     for bad in (["--fecl_chunk", "-1"], ["--fecl_impl", "dense"], ["--data_parallel", "2"]):
         with pytest.raises(SystemExit):
             tconfig.config_from_args("isles22", bad)
-    for bad in (["--data_parallel", "2"], ["--compute_dtype", "bfloat16"], ["--group", "4"]):
+    for bad in (["--data_parallel", "2"], ["--group", "4"]):
         with pytest.raises(SystemExit):
             test_isles22.build_parser().parse_args(bad)
+    assert test_isles22.build_parser().parse_args(
+        ["--compute_dtype", "bfloat16"]).compute_dtype == "bfloat16"
+    assert tconfig.config_from_args(
+        "isles22", ["--compute_dtype", "bfloat16"]).torch_compute_dtype() == torch.bfloat16
     assert ISLES_PATIENTS_TO_SLICES[10] == 45
 
 
