@@ -15,10 +15,12 @@ Phases, each timed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build K1 (ops/csrc/folded_conv3.cu), K1-dW (ops/csrc/folded_conv3_dw.cu)
      and K2 (ops/csrc/fecl_fused.cu), one nvcc each, in parallel, printing
-     ptxas's registers, shared memory and spills per kernel instance; the
-     SASS (cuobjdump) of K1, K1-dW and K2, and of the bf16 kernels K1-bf16
-     and K1-dW-bf16 (the same two libraries), must hold tensor-core MMA
-     (HMMA) instructions in every instance of their kernels;
+     ptxas's registers, shared memory, spills and any wgmma or setmaxnreg
+     warning per kernel instance; the SASS (cuobjdump) of K1, K1-dW and K2
+     must hold tensor-core MMA (HMMA) instructions in every instance of
+     their kernels, and so must the bf16 kernels' mma.sync instances (L_in
+     8); their wgmma instances (K1-bf16 and K1-dW-bf16 at L_in % 64 == 0,
+     the same two libraries) must hold HGMMA;
   3. K1 against its plain F.conv3d version at the 8 full-width shapes one
      eval patch forward gives it (patch 96^3, B = PATCH_BATCH), float32 with
      TF32 off, tolerance 1e-4 * max|plain|; its time beside the plain
@@ -147,7 +149,9 @@ Phases, each timed on its own line:
      bf16 plain version's max error against ref), a rerun bit-identical;
      times beside the plain version's, cuDNN's bf16 fprop, dgrad or wgrad
      (library_ms) and the bf16 bound (FLOPs / 989 TFLOP/s or bf16 bytes /
-     3.35 TB/s); NaN through FoldedConv3Fn in bf16 (forward and dx);
+     3.35 TB/s); NaN through FoldedConv3Fn in bf16 (forward and dx). The
+     shapes at L_in % 64 == 0 run the wgmma instances, conv1.conv1 (L_in 8)
+     the mma.sync ones;
  28. k1_vnet_bf16: the same at the VNet's 6 convs (enc0 at L_in 8, VALID),
      NaN at enc0 and enc1.conv1;
  29. bf16_model: the folded bf16 UNet3D and VNet against the plain bf16
@@ -348,10 +352,10 @@ def _kernel_entry(name, path, source, replaces, launches, rows, bound="float32")
                 library_ms=sum(r["library_ms"] for r in rows), shapes=rows)
 
 
-def check_sass(path, nvcc, kernel, label):
+def check_sass(path, nvcc, kernel, label, op="HMMA"):
     """cuobjdump -sass of a kernel library: every instance of the kernel
-    named `kernel` must hold tensor-core MMA (HMMA, or HGMMA for wgmma)
-    instructions. Returns {function: count}."""
+    named `kernel` must hold tensor-core instructions `op`: HMMA (mma.sync)
+    or HGMMA (wgmma). Returns {function: count}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
@@ -359,10 +363,9 @@ def check_sass(path, nvcc, kernel, label):
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
         if kernel in name:
-            counts[name] = sum(1 for line in block.splitlines()
-                               if "HMMA" in line or "HGMMA" in line)
+            counts[name] = sum(1 for line in block.splitlines() if op in line)
     _check(counts and all(counts.values()),
-           f"{label}'s SASS: tensor-core MMA instructions per kernel instance {counts}")
+           f"{label}'s SASS: {op} instructions per kernel instance {counts}")
     return counts
 
 
@@ -1634,17 +1637,22 @@ def main() -> int:
     logs = _build.build(SOURCE, DW_SOURCE, fecl_fused.SOURCE)
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "wgmma", "setmaxnreg")):
                 print(f"ptxas {src.name}:", line.strip())
     print(f"build_s {time.perf_counter() - t0:.3f}")
-    for src, kernel, label in ((SOURCE, "folded_conv3_kernel", "K1"),
-                               (DW_SOURCE, "folded_conv3_dw_kernel", "K1-dW"),
-                               (fecl_fused.SOURCE, "fecl_kernel", "K2"),
-                               (SOURCE, "folded_conv3_bf16_kernel", "K1-bf16"),
-                               (DW_SOURCE, "folded_conv3_dw_bf16_kernel", "K1-dW-bf16")):
+    # the bf16 instances at L_in % 64 == 0 run wgmma (HGMMA), those at L_in 8
+    # (conv1.conv1, the VNet's enc0) mma.sync (HMMA)
+    for src, kernel, label, op in (
+            (SOURCE, "folded_conv3_kernel", "K1", "HMMA"),
+            (DW_SOURCE, "folded_conv3_dw_kernel", "K1-dW", "HMMA"),
+            (fecl_fused.SOURCE, "fecl_kernel", "K2", "HMMA"),
+            (SOURCE, "folded_conv3_bf16_kernel", "K1-bf16 (L_in 8)", "HMMA"),
+            (DW_SOURCE, "folded_conv3_dw_bf16_kernel", "K1-dW-bf16 (L_in 8)", "HMMA"),
+            (SOURCE, "folded_conv3_bf16_wgmma_kernel", "K1-bf16", "HGMMA"),
+            (DW_SOURCE, "folded_conv3_dw_bf16_wgmma_kernel", "K1-dW-bf16", "HGMMA")):
         for fn, count in check_sass(_build.library_path(src), _build.nvcc(), kernel,
-                                    label).items():
-            print(f"sass {label} {fn}: {count} HMMA/HGMMA")
+                                    label, op).items():
+            print(f"sass {label} {fn}: {count} {op}")
     _phase("build", t0)
 
     gen = torch.Generator(device=device).manual_seed(SEED)

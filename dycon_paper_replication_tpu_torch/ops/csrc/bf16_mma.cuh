@@ -1,10 +1,12 @@
 // The tensor-core helpers of the port's bfloat16 kernels, K1-bf16
 // (folded_conv3.cu) and K1-dW-bf16 (folded_conv3_dw.cu): the m16n8k16 bf16
-// mma.sync with float32 sums, the transposed ldmatrix that gives the
-// fragment of an operand stored MN-major, and the round-to-nearest-even
-// store of two float32 sums as bf16. The copies into shared memory and the
-// non-transposed ldmatrix are tf32_mma.cuh's. The build hashes this header
-// with every source (ops/_build.py).
+// mma.sync with float32 sums (their L_in 8 instances), the transposed
+// ldmatrix that gives the fragment of an operand stored MN-major (also
+// K1-dW-bf16's wgmma A), and the round-to-nearest-even store of two float32
+// sums as bf16. The wgmma instances' own helpers are wgmma_tma.cuh's; the
+// copies into shared memory and the non-transposed ldmatrix are
+// tf32_mma.cuh's. The build hashes this header with every source
+// (ops/_build.py).
 
 #pragma once
 

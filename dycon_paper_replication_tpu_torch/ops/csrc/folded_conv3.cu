@@ -86,31 +86,86 @@
 // dtype: the sums in float32, y stored as bf16, rounded to nearest even. As
 // a GEMM it does 2 M N K FLOPs once, on the bf16 tensor cores (989 TFLOP/s
 // dense on an H100 SXM), and moves half the bytes; the operation bound is
-// the larger at every shape but L_in = 8. Its design is the float32
-// instance's with three changes:
-//   * One m16n8k16 bf16 mma.sync per product, no hi/lo split: the products
-//     of two bf16 values are exact in float32. The stage sums stay (the
-//     tensor core does not round its sums to nearest).
-//   * A k16 step is two taps of 8 lanes: a staged voxel row of 8 bf16 lanes
-//     is 16 bytes, one cp.async and one ldmatrix row, and ldmatrix takes a
-//     row address per lane, so the A fragment's k 0-7 come from tap 2p at
-//     its row offset and k 8-15 from tap 2p + 1 at its own (any offset:
-//     the halo rows are unpadded and consecutive, so each 8x8 matrix reads
-//     128 contiguous bytes). wgmma still cannot follow the one-row offsets.
-//     L_in = 8 (conv1.conv1, the VNet's enc0) works the same way: one stage.
-//   * wf's B fragments come from its N-major rows by ldmatrix.trans; a wf
-//     row of 128 lanes is padded to 136 bf16 (272 bytes), so the 8 rows of
-//     each matrix fall in 32 different banks.
-// A simple kernel that is right: nothing of it is tuned yet.
+// the larger at every shape but L_in = 8. Two instances, by L_in:
+//   * L_in % 64 == 0 (every conv of both model families but the first, and
+//     every dx): wgmma, below.
+//   * L_in = 8 (conv1.conv1, the VNet's enc0; any L_in % 64 != 0): mma.sync.
+//     Bound by the bytes of y and ahead of cuDNN's bf16 fprop, it is the
+//     float32 instance's tiles, halo, row table and ring with one m16n8k16
+//     bf16 mma.sync per product and no hi/lo split. A k16 step is two taps
+//     of 8 lanes: ldmatrix takes a row address per lane, so the A
+//     fragment's k 0-7 come from tap 2p at its row offset and k 8-15 from
+//     tap 2p + 1 at its own; wf's B fragments by ldmatrix.trans from rows
+//     padded to 136 bf16.
+//
+// The wgmma instance replaces that mma.sync design at L_in % 64 == 0, where
+// it ran at 0.20-0.24 of its bound, 2.5x slower than cuDNN: a bf16 product
+// does a third of a 3xTF32 one's work, so its staging (cp.async by every
+// thread through a row table), its barriers and its stage sums set the
+// time. What bounds the redesign: the tensor cores' operations, and the
+// bytes of wf, which every block reads from L2 once (8 L_in x 128 lanes,
+// ~25 bytes a clock per SM against an L2 that gives ~30). The design:
+//   * Warp specialisation on an mbarrier ring. A block is 3 warpgroups:
+//     one thread of the third issues every TMA load, the other two compute.
+//     Two halo slots (one 64-lane chunk of x each, read by all 8 taps) and
+//     up to 4 wf slots (one tap of the chunk each, 16 KB), each with a full
+//     barrier (the TMA's bytes) and an empty one (the 8 consumer warps);
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232). The next chunk's halo is requested after its chunk's 4th tap.
+//   * TMA, 128B-swizzled. x is a 5-D tensor map over (L_in, G3, G2, G1, B),
+//     TMA's highest rank; a box is 64 lanes (128 bytes) x (sw + 1) columns
+//     x (rows + 1) rows x 2 d-planes from the halo's corner, and its
+//     out-of-bounds zero fill is the pad and the tail: no row table, no
+//     zero-fill copies. wf is a 2-D map over (L_out, 8 L_in), boxes of 64
+//     rows x 64 lanes. Both maps are encoded on every call.
+//   * Tiles of whole padded rows. An output tile is `rows` whole rows of
+//     sw + 1 columns (the last never written) of one (b, qd) plane, at most
+//     256 rows (71-93 % of them output voxels at the models' grids), so the
+//     halo is a box; tap (td, th, tw) reads it at the fixed row offset
+//     td (rows + 1)(sw + 1) + th (sw + 1) + tw, as the float32 instance does.
+//     A row of x crosses from L2 into shared memory 2 (rows + 1) / rows
+//     ~ 2.2-2.7 times per output row.
+//   * wgmma m64n128k16 with A from registers: wgmma reads an A in shared
+//     memory as 8-row core matrices, which cannot follow a one-row tap
+//     offset; from registers each warp gives its 16 rows in the m16n8k16
+//     fragment layout, which ldmatrix loads at any row of the swizzled halo
+//     (16-byte chunk c of row r at c ^ (r % 8)). B, wf's N-contiguous rows,
+//     by descriptor, MN-major (tnspB). Each consumer warpgroup owns 128 rows
+//     (2 m64 pieces) x 128 lanes, 128 float32 sums a thread. A k16 step's
+//     two wgmmas are one commit group; the next step's ldmatrix runs while
+//     it is in flight (wait_group 1), and a wf slot is released once every
+//     group that read it is done.
+//   * Accumulation: one running float32 sum over K = 8 L_in, no fresh sums.
+//     wgmma does not round its sums to nearest either, but a k16 step
+//     truncates once: tests/test_torch_bf16_mma.py emulates it at L_in 128
+//     and 768, where the error before the bf16 store stays within 1/50 of
+//     the room the gate leaves above one rounding (the design needs 1/4).
+//   * The epilogue through shared memory: once both warpgroups are done
+//     with the halo (a named barrier), the tile's sums, rounded to bf16, go
+//     into the halo slots as two 128B-swizzled boxes of its output voxels
+//     (64 lanes each, the padded column left out) and leave by two TMA
+//     stores, which skip what lies past the grid: ~5 % faster than each
+//     thread storing its pairs of lanes (variant K1W_DIRECT_STORE).
+//   * Reruns are bit-identical: every sum is in a fixed order.
+// What still holds it back (PERF.md): the data path alone (TMA loads,
+// barriers, ldmatrix, stores; variant K1W_NO_MMA) takes 60 % of the
+// kernel's time, and it overlaps the products only in part. Tried without
+// gain: a persistent grid (a block per SM walking the tiles), 2 to 8 wf
+// slots, a tap's 8 wgmmas as one commit group; slower: 2-CTA clusters that
+// multicast wf.
 //
 // Design variants for scripts/k1_variants.py, never defined by the port's
 // own build (ops/_build.py): K1_ONE_PASS (hi_a*hi_b only), K1_TAP_SUMS (a
 // fresh sum per tap and 16 x 8 piece), K1_RUNNING_SUM (no fresh sums),
 // K1_NO_REUSE (each tap stages its own BM input rows and its own wf slice,
-// one tap per stage: the traffic of a per-tap gather).
+// one tap per stage: the traffic of a per-tap gather); for the bf16 wgmma
+// instance (--dtype bf16) K1W_DIRECT_STORE (each thread stores its sums to
+// y itself, no TMA store), K1W_NO_MMA and K1W_NO_STORE (diagnostics: the
+// tile without its products, or without its stores).
 
 #include "tf32_mma.cuh"
 #include "bf16_mma.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -598,6 +653,262 @@ cudaError_t launch_k1_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wf, __nv
   return cudaGetLastError();
 }
 
+// ---- K1-bf16 on wgmma (L_in % 64 == 0) ------------------------------------
+
+constexpr int WG_ROWS = 256;         // output rows (padded row order) per block
+constexpr int WG_THREADS = 384;      // 2 consumer warpgroups, then the producer's
+constexpr int WG_LANES = 64;         // input lanes per halo box: one 128-byte row
+constexpr int WF_SLOT_BYTES = 16384; // one tap's 64 lanes x 128 output lanes of wf
+
+// Warp-specialised: warpgroups 0 and 1 compute rows 128 w .. 128 w + 127 of
+// the tile (two m64 pieces each) over all 128 output lanes; one thread of
+// warpgroup 2 issues the TMA loads. The ring: 2 halo slots (one 64-lane
+// chunk of both d-planes each) and `wf_slots` wf slots (one tap of that
+// chunk each), with full (TMA) and empty (8 consumer warps) mbarriers.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+folded_conv3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                               const __grid_constant__ CUtensorMap tmap_wf,
+                               const __grid_constant__ CUtensorMap tmap_y,
+                               __nv_bfloat16* __restrict__ y, int Lin, int Lout, int Q1, int Q2,
+                               int Q3, int off, int sw, int rows, int htiles, int halo_rows,
+                               int wf_slots) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int halo_bytes = halo_rows * 128;
+  unsigned char* wf_ring = smem + 2 * halo_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wf_ring + wf_slots * WF_SLOT_BYTES);
+  uint64_t* halo_full = bars;
+  uint64_t* halo_empty = bars + 2;
+  uint64_t* wf_full = bars + 4;
+  uint64_t* wf_empty = wf_full + wf_slots;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wv = sw + 1;
+  const int hr = (rows + 1) * wv;  // halo rows per d-plane
+  const int seg = blockIdx.x / htiles;
+  const int w0 = seg * sw;
+  const int h0 = (blockIdx.x - seg * htiles) * rows;
+  const int n0 = blockIdx.y * 128;
+  const int bq = blockIdx.z;  // b * Q1 + qd
+  const int b = bq / Q1;
+  const int qd = bq - b * Q1;
+  const int nchunks = Lin / WG_LANES;
+
+  if (tid == 0) {
+    mbar_init(&halo_full[0], 1);
+    mbar_init(&halo_full[1], 1);
+    mbar_init(&halo_empty[0], 8);
+    mbar_init(&halo_empty[1], 8);
+    for (int i = 0; i < wf_slots; ++i) {
+      mbar_init(&wf_full[i], 1);
+      mbar_init(&wf_empty[i], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: one thread keeps the loads in flight
+    regs_dealloc<40>();
+    if (warp == 8 && lane == 0) {
+      tma_prefetch_map(&tmap_x);
+      tma_prefetch_map(&tmap_wf);
+      const uint32_t box_bytes = uint32_t(2 * hr) * 128;
+      auto load_halo = [&](int c) {
+        const int s = c & 1;
+        mbar_wait(&halo_empty[s], ((c >> 1) & 1) ^ 1);
+        mbar_arrive_tx(&halo_full[s], box_bytes);
+        tma_load_5d(smem + s * halo_bytes, &tmap_x, &halo_full[s], c * WG_LANES, w0 + off,
+                    h0 + off, qd + off, b);
+      };
+      load_halo(0);
+      int step = 0;
+      for (int c = 0; c < nchunks; ++c) {
+        for (int t = 0; t < 8; ++t, ++step) {
+          const int s = step % wf_slots;
+          mbar_wait(&wf_empty[s], ((step / wf_slots) & 1) ^ 1);
+          mbar_arrive_tx(&wf_full[s], WF_SLOT_BYTES);
+          unsigned char* dst = wf_ring + s * WF_SLOT_BYTES;
+          const int k = t * Lin + c * WG_LANES;
+          tma_load_2d(dst, &tmap_wf, &wf_full[s], n0, k);
+          tma_load_2d(dst + WF_SLOT_BYTES / 2, &tmap_wf, &wf_full[s], n0 + 64, k);
+          // the next chunk's halo once this one's 4th tap is queued: its slot
+          // is free by then (the chunk before was done with before tap 0)
+          if (t == 3 && c + 1 < nchunks) load_halo(c + 1);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    regs_alloc<232>();
+    const int wg = warp >> 2;
+    const int wi = warp & 3;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int lm = lane >> 3;
+    const int lr = lane & 7;
+    // this lane's ldmatrix row of piece 0 (piece 1 is 64 rows on) and its
+    // 16-byte chunk parity: matrices (rows 0-7 | 8-15) x (lanes 0-7 | 8-15)
+    const int arow = 128 * wg + 16 * wi + 8 * (lm & 1) + lr;
+    const int achunk = lm >> 1;
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+
+    int step = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      const int hs = c & 1;
+      mbar_wait(&halo_full[hs], (c >> 1) & 1);
+      const uint32_t halo = smem_addr(smem + hs * halo_bytes);
+#pragma unroll
+      for (int t = 0; t < 8; ++t, ++step) {
+        const int s = step % wf_slots;
+        mbar_wait(&wf_full[s], (step / wf_slots) & 1);
+        const uint32_t wfs = smem_addr(wf_ring + s * WF_SLOT_BYTES);
+        const int o = (t >> 2) * hr + ((t >> 1) & 1) * wv + (t & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = arow + 64 * i + o;
+            ldsm_x4(a[i], halo + r * 128 + (((2 * kk + achunk) ^ (r & 7)) << 4));
+          }
+          const uint64_t desc = desc_mn_sw128(wfs + kk * 2048, WF_SLOT_BYTES / 2, 1024);
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          wgmma_fence();
+#ifndef K1W_NO_MMA  // variant (a diagnostic): the data path without the products
+          wgmma_m64n128k16_rs(acc[0], a[0], desc);
+          wgmma_m64n128k16_rs(acc[1], a[1], desc);
+#endif
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          // every wgmma of the previous tap is done: its wf slot is free
+          if (kk == 0 && step > 0 && lane == 0) mbar_arrive(&wf_empty[(step - 1) % wf_slots]);
+        }
+      }
+      // this warp's reads of the halo are done (ldmatrix is synchronous)
+      if (lane == 0) mbar_arrive(&halo_empty[hs]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+
+#ifdef K1W_DIRECT_STORE
+    // variant: row m of the tile is output voxel (qd, h0 + m / wv, w0 + m %
+    // wv); the padded column, rows past the tile's and voxels past the grid
+    // are not written. Two lanes a 4-byte store, rounded to bf16.
+    const int64_t ybase = int64_t(bq) * Q2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = 128 * wg + 64 * i + 16 * wi + g + 8 * half;
+        const int qh = m / wv;
+        const int cc = m - qh * wv;
+        if (qh >= rows || h0 + qh >= Q2 || cc >= sw || w0 + cc >= Q3) continue;
+        __nv_bfloat16* yr =
+            y + ((ybase + h0 + qh) * Q3 + w0 + cc) * int64_t(Lout) + n0 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(yr + 8 * j) =
+              pack_bf16_rn(acc[i][4 * j + 2 * half], acc[i][4 * j + 2 * half + 1]);
+      }
+    }
+#else
+    // The tile through shared memory and two TMA stores. Once both
+    // warpgroups are done reading the halo (a named barrier of the 256
+    // consumer threads), the halo slots take the tile as two boxes of
+    // rows x sw voxels x 64 lanes, 128B-swizzled: row m of the tile (voxel
+    // (h0 + m / wv, w0 + m % wv)) goes to box row (m / wv) sw + m % wv, the
+    // padded column nowhere. The stores skip what lies past the grid.
+    // Rounded to bf16 to nearest even.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = 128 * wg + 64 * i + 16 * wi + g + 8 * half;
+        const int qh = m / wv;
+        const int cc = m - qh * wv;
+        if (qh >= rows || cc >= sw) continue;
+        const int r = qh * sw + cc;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(smem + (j >> 3) * (WG_ROWS * 128) + r * 128 +
+                                             (((j & 7) ^ (r & 7)) << 4) + 4 * t4) =
+              pack_bf16_rn(acc[i][4 * j + 2 * half], acc[i][4 * j + 2 * half + 1]);
+      }
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#ifndef K1W_NO_STORE  // variant (a diagnostic): the tile without its stores
+    if (tid == 0) {
+      tma_store_5d(&tmap_y, smem, n0, w0, h0, qd, b);
+      tma_store_5d(&tmap_y, smem + WG_ROWS * 128, n0 + 64, w0, h0, qd, b);
+      tma_store_commit_wait();
+    }
+#endif
+#endif
+  }
+}
+
+// Shared memory of one wgmma launch: 1024 bytes of alignment slack, 2 halo
+// slots, the wf ring and its barriers.
+inline int wgmma_smem_bytes(int halo_rows, int wf_slots) {
+  return 1024 + 2 * halo_rows * 128 + wf_slots * WF_SLOT_BYTES + 8 * (4 + 2 * wf_slots);
+}
+
+cudaError_t launch_k1_bf16_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* wf,
+                                 __nv_bfloat16* y, int B, int G1, int G2, int G3, int Lin,
+                                 int Lout, int Q1, int Q2, int Q3, int off, int sw, int rows,
+                                 int halo_rows, int wf_slots, cudaStream_t st) {
+  if (Lin % WG_LANES || Lout % 128 || sw < 1 || rows < 1 || wf_slots < 2 ||
+      rows * (sw + 1) > WG_ROWS || halo_rows % 8 ||
+      halo_rows < 2 * (rows + 1) * (sw + 1) ||  // the box, and what the taps read past it
+      halo_rows < WG_ROWS + (rows + 2) * (sw + 1) + 1)
+    return cudaErrorInvalidValue;
+  // x as (L_in, G3, G2, G1, B), one box = 64 lanes x (sw + 1) columns x
+  // (rows + 1) rows x 2 d-planes, from the halo's corner (pad and tail
+  // zero-filled); wf as (L_out, 8 L_in), one box = 64 x 64
+  CUtensorMap tmap_x, tmap_wf, tmap_y;
+  const uint64_t xd[5] = {uint64_t(Lin), uint64_t(G3), uint64_t(G2), uint64_t(G1), uint64_t(B)};
+  const uint64_t xs[4] = {uint64_t(Lin) * 2, uint64_t(G3) * Lin * 2,
+                          uint64_t(G2) * G3 * Lin * 2, uint64_t(G1) * G2 * G3 * Lin * 2};
+  const uint32_t xb[5] = {WG_LANES, uint32_t(sw + 1), uint32_t(rows + 1), 2, 1};
+  const uint64_t wd[2] = {uint64_t(Lout), uint64_t(8) * Lin};
+  const uint64_t ws[1] = {uint64_t(Lout) * 2};
+  const uint32_t wb[2] = {64, 64};
+  // y as (L_out, Q3, Q2, Q1, B), one box = 64 lanes x sw x rows: the tile's
+  // output voxels, half its lanes
+  const uint64_t yd[5] = {uint64_t(Lout), uint64_t(Q3), uint64_t(Q2), uint64_t(Q1), uint64_t(B)};
+  const uint64_t ys[4] = {uint64_t(Lout) * 2, uint64_t(Q3) * Lout * 2,
+                          uint64_t(Q2) * Q3 * Lout * 2, uint64_t(Q1) * Q2 * Q3 * Lout * 2};
+  const uint32_t yb[5] = {64, uint32_t(sw), uint32_t(rows), 1, 1};
+  if (!encode_bf16_map(&tmap_x, x, 5, xd, xs, xb) ||
+      !encode_bf16_map(&tmap_wf, wf, 2, wd, ws, wb) || !encode_bf16_map(&tmap_y, y, 5, yd, ys, yb))
+    return cudaErrorInvalidValue;
+  const int bytes = wgmma_smem_bytes(halo_rows, wf_slots);
+  const cudaError_t err = cudaFuncSetAttribute(
+      folded_conv3_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nseg = (Q3 + sw - 1) / sw;
+  const int htiles = (Q2 + rows - 1) / rows;
+  const dim3 grid(nseg * htiles, Lout / 128, B * Q1);
+  folded_conv3_bf16_wgmma_kernel<<<grid, WG_THREADS, bytes, st>>>(
+      tmap_x, tmap_wf, tmap_y, y, Lin, Lout, Q1, Q2, Q3, off, sw, rows, htiles, halo_rows,
+      wf_slots);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (B, G1, G2, G3, Lin) float32, wf: (2, 2, 2, Lin, Lout) float32,
@@ -621,10 +932,15 @@ extern "C" int dycon_folded_conv3_f32(const void* x, const void* wf, void* y, in
   return static_cast<int>(err);
 }
 
-// The same function and contract on bf16 x, wf and y (K1-bf16).
+// The same function and contract on bf16 x, wf and y (K1-bf16). With
+// sw > 0 (L_in % 64 == 0) the wgmma instance, on the wrapper's plan
+// (ops/folded_conv_cuda.py:k1_bf16_plan): segments of sw output columns,
+// tiles of `rows` padded rows, halo slots of `halo_rows` 128-byte rows and
+// `wf_slots` wf slots; the tensor maps are encoded here, on every call.
+// With sw == 0 the mma.sync instance (L_in = 8, or any L_in % 64 != 0).
 extern "C" int dycon_folded_conv3_bf16(const void* x, const void* wf, void* y, int B, int G1,
-                                       int G2, int G3, int Lin, int Lout, int to_phase,
-                                       void* stream) {
+                                       int G2, int G3, int Lin, int Lout, int to_phase, int sw,
+                                       int rows, int halo_rows, int wf_slots, void* stream) {
   const int step = to_phase == 1 ? 1 : -1;
   const int off = to_phase == 1 ? -1 : 0;
   const int Q1 = G1 + step, Q2 = G2 + step, Q3 = G3 + step;
@@ -633,7 +949,10 @@ extern "C" int dycon_folded_conv3_bf16(const void* x, const void* wf, void* y, i
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wf);
   __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
   const cudaError_t err =
-      Lin == BK
+      sw > 0
+          ? launch_k1_bf16_wgmma(xb, wb, yb, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, sw, rows,
+                                 halo_rows, wf_slots, st)
+      : Lin == BK
           ? launch_k1_bf16<2, 2, false>(xb, wb, yb, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st)
           : launch_k1_bf16<3, 1, true>(xb, wb, yb, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, st);
   return static_cast<int>(err);

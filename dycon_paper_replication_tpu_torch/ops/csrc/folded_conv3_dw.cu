@@ -65,26 +65,57 @@
 //     writes its float32 partial tile to a workspace (splits x 8 L_in x
 //     L_out) and a second kernel sums the partials in split order. No float
 //     atomics, so reruns are bit-identical.
-
 //
 // K1-dW-bf16 (dycon_folded_conv3_dw_bf16) is the same function on bf16 x
 // and dy, as the JAX package's custom VJP computes it under its bfloat16
 // compute dtype: `_dwf` sums in float32 and `.astype(wf.dtype)` rounds the
-// sum to bf16. The products of two bf16 values are exact in float32, so one
-// m16n8k16 bf16 mma.sync per product gives that float32 sum up to order;
-// the stage sums, the split-K, the workspace and the split-order sum stay,
-// so reruns are bit-identical, and the split-sum kernel rounds to bf16 to
-// nearest even. With 16-bit operands ldmatrix.trans feeds both MN-major
-// tiles (x rows contiguous in a, dy rows in n), which TF32 could not: one
-// transposed x4 load per 16x16 A fragment and per two 8-lane B pieces.
-// Rows of 128 (64) bf16 are padded by 8, so each 8x8 matrix of a load falls
-// in 32 different banks. A staged 16-byte copy is 8 rows (of one tap: L_in
-// % 8 == 0) or 8 lanes. Its bound is FLOPs over 989 TFLOP/s dense bf16, or
-// the bytes of dy at L_in = 8. A simple kernel that is right: nothing of it
-// is tuned yet.
+// sum to bf16. The split-K and its workspace stay, and the split-sum kernel
+// rounds to bf16 to nearest even. Its bound is FLOPs over 989 TFLOP/s dense
+// bf16, or the bytes of dy at L_in = 8. Two instances, by L_in:
+//   * L_in % 64 == 0 (every conv of both model families but the first):
+//     wgmma, below.
+//   * L_in = 8 (conv1.conv1, the VNet's enc0; any L_in % 64 != 0):
+//     mma.sync. Bound by the bytes of dy and ahead of cuDNN's bf16 wgrad, it
+//     is the float32 kernel's tiles, split, ring, stage sums and voxel walk
+//     with one m16n8k16 bf16 mma.sync per product; ldmatrix.trans feeds both
+//     MN-major tiles (x rows contiguous in a, dy rows in n) from rows padded
+//     by 8 bf16.
+//
+// The wgmma instance replaces that design at L_in % 64 == 0, where it ran
+// at 0.13-0.15 of its bound, 3x slower than cuDNN's wgrad: its staging by
+// every thread, its barriers and its stage sums set the time. What bounds
+// the redesign: the tensor cores' operations, and the bytes of dy, which
+// every block reads from L2 (2 L_in / 64 blocks read each voxel's 128
+// lanes). The design, K1-bf16's pattern:
+//   * GEMM rows (tap, a) by L_out over the voxels. A block takes one
+//     64-lane chunk of L_in and one d-tap td, so 4 taps x 64 rows, 128
+//     output lanes, and one split of the voxel tiles; warpgroup w computes
+//     taps (td, w, 0) and (td, w, 1), one m64 piece each. One thread of a
+//     third warpgroup issues the TMA loads into a ring of 2-4 stages (full
+//     and empty mbarriers); setmaxnreg as in K1-bf16.
+//   * Voxel tiles of whole rows: `rows` rows of sw columns of one (b, qd)
+//     plane of dy, about 256 voxels. Per tile, TMA loads x's halo box, 64
+//     lanes x (sw + 1) x (rows + 1) x 1 d-plane from the tap-shifted corner
+//     (zero-filled outside the grid), read by all 4 taps, and dy's two
+//     64-lane boxes of sw x rows.
+//   * A from registers by ldmatrix.trans: the tap-shifted x as a (lanes) x
+//     voxels, each lane giving the halo row of its voxel, (vr + th)(sw + 1)
+//     + vc + tw; a voxel outside dy's grid reads a zero row (dy is zero
+//     there, x may hold a NaN that no dy multiplies). B, dy's N-contiguous
+//     rows, by descriptor, MN-major; the tile's k16 tail reads zero rows.
+//   * Accumulation: one running float32 sum over a split (at most 131,072
+//     voxels, ops/folded_conv_cuda.py:DW_WG_MAX_CHUNK), no fresh sums; the
+//     split sum adds the partials with rounded adds. tests/
+//     test_torch_bf16_mma.py emulates wgmma's truncated sums over the split
+//     at the Pancreas up_concat1.conv1 shape: within a quarter of the room
+//     the gate leaves above one rounding.
+//   * Deterministic split-K as before: no atomics, reruns bit-identical.
+// Tried and slower (PERF.md): tiles of ~96-160 voxels on rings of 3-8
+// stages; 2-CTA clusters (td = 0, 1) that multicast dy.
 
 #include "tf32_mma.cuh"
 #include "bf16_mma.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -525,6 +556,217 @@ cudaError_t launch_dw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy, floa
   return cudaGetLastError();
 }
 
+// ---- K1-dW-bf16 on wgmma (L_in % 64 == 0) ---------------------------------
+
+constexpr int WG_THREADS = 384;  // 2 consumer warpgroups, then the producer's
+constexpr int WG_LANES = 64;     // input lanes per x box: one 128-byte row
+
+// Stage layout: the x halo (xrows 128-byte rows: the box's (rows + 1) x
+// (sw + 1) voxels, then zero rows), then dy's two 64-lane halves of kpad
+// rows each (the box's rows x sw voxels, then zero rows).
+__host__ __device__ inline int wgmma_stage_bytes(int xrows, int kpad) {
+  return (xrows + 2 * kpad) * 128;
+}
+
+// Block (kc, td) x n-tile x split: rows (tap, a) of the taps (td, th, tw)
+// for one 64-lane chunk kc of L_in, 128 output lanes, over the split's
+// voxel tiles. Warpgroup w computes taps (td, w, 0) and (td, w, 1), one
+// m64 piece each; one thread of warpgroup 2 issues the TMA loads.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+folded_conv3_dw_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                                  const __grid_constant__ CUtensorMap tmap_dy,
+                                  float* __restrict__ ws, int Lin, int Lout, int Q1, int Q2,
+                                  int Q3, int off, int sw, int rows, int htiles, int nseg,
+                                  int xrows, int kpad, int slots, int ntiles, int chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int stage_bytes = wgmma_stage_bytes(xrows, kpad);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + slots * stage_bytes);
+  uint64_t* empty = full + slots;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wh = sw + 1;
+  const int kc = blockIdx.x >> 1;
+  const int td = blockIdx.x & 1;
+  const int n0 = blockIdx.y * 128;
+  const int split = blockIdx.z;
+  const int t_begin = split * chunk;
+  const int t_end = min(ntiles, t_begin + chunk);
+  const int nvox = rows * sw;  // the dy box's voxels
+
+  // zero rows: the x halo's past its box, dy's past its box (never written
+  // by TMA), so a masked voxel reads x = 0 and the k16 tail reads dy = 0
+  for (int sl = 0; sl < slots; ++sl) {
+    unsigned char* base = smem + sl * stage_bytes;
+    for (int i = (rows + 1) * wh * 8 + tid; i < xrows * 8; i += WG_THREADS)
+      reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
+    for (int h = 0; h < 2; ++h) {
+      uint4* d = reinterpret_cast<uint4*>(base + (xrows + h * kpad) * 128);
+      for (int i = nvox * 8 + tid; i < kpad * 8; i += WG_THREADS) d[i] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  fence_proxy_async();
+  if (tid == 0) {
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // voxel tile t: (b, qd, row tile, segment), in that order of significance
+  auto decode = [&](int t, int& b, int& qd, int& h0, int& w0) {
+    const int seg = t % nseg;
+    t /= nseg;
+    const int ht = t % htiles;
+    t /= htiles;
+    qd = t % Q1;
+    b = t / Q1;
+    h0 = ht * rows;
+    w0 = seg * sw;
+  };
+
+  if (warp >= 8) {
+    regs_dealloc<40>();
+    if (warp == 8 && lane == 0) {
+      tma_prefetch_map(&tmap_x);
+      tma_prefetch_map(&tmap_dy);
+      const uint32_t bytes = uint32_t((rows + 1) * wh + 2 * nvox) * 128;
+      for (int t = t_begin; t < t_end; ++t) {
+        const int i = t - t_begin, s = i % slots;
+        int b, qd, h0, w0;
+        decode(t, b, qd, h0, w0);
+        mbar_wait(&empty[s], ((i / slots) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], bytes);
+        unsigned char* base = smem + s * stage_bytes;
+        tma_load_5d(base, &tmap_x, &full[s], kc * WG_LANES, w0 + off, h0 + off, qd + off + td,
+                    b);
+        tma_load_5d(base + xrows * 128, &tmap_dy, &full[s], n0, w0, h0, qd, b);
+        tma_load_5d(base + (xrows + kpad) * 128, &tmap_dy, &full[s], n0 + 64, w0, h0, qd, b);
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int wg = warp >> 2;
+    const int wi = warp & 3;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int lm = lane >> 3;
+    // ldmatrix.trans: this lane gives the row of voxel vk of a k16 step in
+    // matrix lm = (lanes 0-7 | 8-15 of the warp's 16) x (voxels 0-7 | 8-15)
+    const int vk = 8 * (lm >> 1) + (lane & 7);
+    const int achunk = 2 * wi + (lm & 1);
+    const int zrow = (rows + 1) * wh;  // a zero row of the halo
+    const int o0 = wg * wh;            // tap (td, wg, 0); (td, wg, 1) is one row on
+    const int vr0 = vk / sw, vc0 = vk - (vk / sw) * sw;
+    float acc[2][64];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[j][e] = 0.f;
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i = t - t_begin, s = i % slots;
+      int b, qd, h0, w0;
+      decode(t, b, qd, h0, w0);
+      const int rmax = min(rows, Q2 - h0), cmax = min(sw, Q3 - w0);
+      mbar_wait(&full[s], (i / slots) & 1);
+      const uint32_t xs = smem_addr(smem + s * stage_bytes);
+      const uint32_t dys = xs + xrows * 128;
+      int vr = vr0, vc = vc0;  // this lane's voxel (row, column) in the tile
+      for (int kk = 0; kk < kpad; kk += 16) {
+        const bool valid = vr < rmax && vc < cmax;
+        const int r = vr * wh + vc + o0;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int rj = valid ? r + j : zrow;
+          ldsm_x4_trans(a[j], xs + rj * 128 + ((achunk ^ (rj & 7)) << 4));
+        }
+        const uint64_t desc = desc_mn_sw128(dys + kk * 128, kpad * 128, 1024);
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_fence();
+        wgmma_m64n128k16_rs(acc[0], a[0], desc);
+        wgmma_m64n128k16_rs(acc[1], a[1], desc);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        // every wgmma of the previous tile is done: its slot is free
+        if (kk == 0 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % slots]);
+        vc += 16;
+        while (vc >= sw) {
+          vc -= sw;
+          ++vr;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+
+    // acc[j]: rows a = 16 wi + g (+ 8) of tap (td, wg, j), columns 8 q + 2 t4
+    float* part = ws + int64_t(split) * 8 * Lin * Lout;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int tap = 4 * td + 2 * wg + j;
+      const int r = tap * Lin + kc * WG_LANES + 16 * wi + g;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int n = n0 + 8 * q + 2 * t4;
+        *reinterpret_cast<float2*>(part + int64_t(r) * Lout + n) =
+            make_float2(acc[j][4 * q], acc[j][4 * q + 1]);
+        *reinterpret_cast<float2*>(part + int64_t(r + 8) * Lout + n) =
+            make_float2(acc[j][4 * q + 2], acc[j][4 * q + 3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_dw_bf16_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* ws,
+                                 int B, int G1, int G2, int G3, int Lin, int Lout, int Q1, int Q2,
+                                 int Q3, int off, int splits, int chunk, int sw, int rows,
+                                 int slots, cudaStream_t st) {
+  const int wh = sw + 1;
+  const int kpad = (rows * sw + 15) / 16 * 16;
+  const int xrows = ((rows + 1) * wh + 1 + 7) / 8 * 8;  // at least one zero row, 1024-aligned
+  if (Lin % WG_LANES || Lout % 128 || sw < 1 || rows < 1 || slots < 2)
+    return cudaErrorInvalidValue;
+  // x as (L_in, G3, G2, G1, B), a box = 64 lanes x (sw + 1) x (rows + 1) x
+  // 1 d-plane from the tile's tap-shifted corner; dy as (L_out, Q3, Q2, Q1,
+  // B), a box = 64 lanes x sw x rows
+  CUtensorMap tmap_x, tmap_dy;
+  const uint64_t xd[5] = {uint64_t(Lin), uint64_t(G3), uint64_t(G2), uint64_t(G1), uint64_t(B)};
+  const uint64_t xs[4] = {uint64_t(Lin) * 2, uint64_t(G3) * Lin * 2,
+                          uint64_t(G2) * G3 * Lin * 2, uint64_t(G1) * G2 * G3 * Lin * 2};
+  const uint32_t xb[5] = {WG_LANES, uint32_t(wh), uint32_t(rows + 1), 1, 1};
+  const uint64_t dd[5] = {uint64_t(Lout), uint64_t(Q3), uint64_t(Q2), uint64_t(Q1), uint64_t(B)};
+  const uint64_t ds[4] = {uint64_t(Lout) * 2, uint64_t(Q3) * Lout * 2,
+                          uint64_t(Q2) * Q3 * Lout * 2, uint64_t(Q1) * Q2 * Q3 * Lout * 2};
+  const uint32_t db[5] = {64, uint32_t(sw), uint32_t(rows), 1, 1};
+  if (!encode_bf16_map(&tmap_x, x, 5, xd, xs, xb) || !encode_bf16_map(&tmap_dy, dy, 5, dd, ds, db))
+    return cudaErrorInvalidValue;
+  const int bytes = 1024 + slots * wgmma_stage_bytes(xrows, kpad) + 16 * slots;
+  const cudaError_t err = cudaFuncSetAttribute(
+      folded_conv3_dw_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nseg = (Q3 + sw - 1) / sw;
+  const int htiles = (Q2 + rows - 1) / rows;
+  const int ntiles = B * Q1 * htiles * nseg;
+  if (int64_t(splits) * chunk < ntiles || int64_t(splits - 1) * chunk >= ntiles)
+    return cudaErrorInvalidValue;
+  const dim3 grid(2 * (Lin / WG_LANES), Lout / 128, splits);
+  folded_conv3_dw_bf16_wgmma_kernel<<<grid, WG_THREADS, bytes, st>>>(
+      tmap_x, tmap_dy, ws, Lin, Lout, Q1, Q2, Q3, off, sw, rows, htiles, nseg, xrows, kpad, slots,
+      ntiles, chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (B, G1, G2, G3, Lin), dy: (B, Q1, Q2, Q3, Lout) with Q = G + 1
@@ -558,10 +800,16 @@ extern "C" int dycon_folded_conv3_dw_f32(const void* x, const void* dy, void* ws
 }
 
 // The same function and contract on bf16 x and dy and a bf16 dwf (K1-dW-bf16);
-// ws stays float32.
+// ws stays float32. With sw > 0 (L_in % 64 == 0) the wgmma instance, on the
+// wrapper's plan (ops/folded_conv_cuda.py:dw_bf16_plan): voxel tiles of
+// `rows` rows of sw columns of one (b, qd) plane of dy, `chunk` tiles per
+// split, a ring of `slots` stages; the tensor maps are encoded here, on
+// every call. With sw == 0 the mma.sync instance (L_in = 8, or any L_in %
+// 64 != 0), `chunk` voxels per split.
 extern "C" int dycon_folded_conv3_dw_bf16(const void* x, const void* dy, void* ws, void* dwf,
                                           int B, int G1, int G2, int G3, int Lin, int Lout,
-                                          int to_phase, int splits, int chunk, void* stream) {
+                                          int to_phase, int splits, int chunk, int sw, int rows,
+                                          int slots, void* stream) {
   const int step = to_phase == 1 ? 1 : -1;
   const int off = to_phase == 1 ? -1 : 0;
   const int Q1 = G1 + step, Q2 = G2 + step, Q3 = G3 + step;
@@ -571,7 +819,9 @@ extern "C" int dycon_folded_conv3_dw_bf16(const void* x, const void* dy, void* w
   const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
   float* wsf = static_cast<float*>(ws);
   const cudaError_t err =
-      Lin % 16 == 0
+      sw > 0 ? launch_dw_bf16_wgmma(xb, dyb, wsf, B, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off,
+                                    splits, chunk, sw, rows, slots, st)
+      : Lin % 16 == 0
           ? launch_dw_bf16<128>(xb, dyb, wsf, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, V, splits,
                                 chunk, st)
           : launch_dw_bf16<64>(xb, dyb, wsf, G1, G2, G3, Lin, Lout, Q1, Q2, Q3, off, V, splits,

@@ -31,6 +31,12 @@ there is no fallback. `folded_conv3.launches` counts kernel launches, and
 `by_dtype` holds the same counts per instance (torch.float32,
 torch.bfloat16), so a run can show which instance ran.
 
+The bfloat16 instances whose L_in is a multiple of 64 run on Hopper's
+warpgroup MMA (wgmma) fed by TMA; `k1_bf16_plan` and `dw_bf16_plan` give
+their launch shape (tiles, tensor-map boxes and strides, ring depth,
+split-K), which the C entries take as arguments and check. L_in = 8 (the
+first conv) and any other L_in take the mma.sync instance.
+
 `folded_conv3_dw(x, dy, to_phase=...)` is the weight gradient of that conv,
 dwf[t] = sum_q x[q + off + t] (x) dy[q] with off = -1 (to_phase=1) or 0;
 `folded_conv3_dw.launches` counts its launches. `FoldedConv3Fn` is the
@@ -42,7 +48,9 @@ dwf = K1-dW.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import itertools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -134,14 +142,128 @@ class _Counted:
         return self._fns[dtype]
 
 
+# The wgmma instances of K1-bf16 and K1-dW-bf16 (csrc/folded_conv3.cu,
+# csrc/folded_conv3_dw.cu): TMA boxes of 64 lanes (one 128-byte row, the
+# 128B swizzle's), grids cut into segments of at most 64 output columns,
+# K1 tiles of at most 256 output rows in padded row order, K1-dW voxel
+# tiles of about 256 voxels, at most 227 KB of shared memory a block.
+WG_LANES = 64
+WG_SEG = 64
+K1_WG_ROWS = 256
+WF_SLOT_BYTES = 16_384
+WF_SLOTS_MAX = 4
+DW_WG_VOXELS = 256
+DW_SLOTS_MAX = 4
+# The most voxels one K1-dW-bf16 split sums into one float32 partial before
+# the split sum's rounded adds (tests/test_torch_bf16_mma.py: the wgmma's
+# truncated sums over such a chunk stay within a quarter of the gate's room)
+DW_WG_MAX_CHUNK = 131_072
+SMEM_LIMIT = 232_448
+TMA_BOX_MAX = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _segments(q3: int) -> tuple[int, int]:
+    """(segment width sw, segments) of an output row of q3 columns: equal
+    segments of at most WG_SEG columns."""
+    sw = _cdiv(q3, _cdiv(q3, WG_SEG))
+    return sw, _cdiv(q3, sw)
+
+
+def _even_rows(q2: int, most: int) -> tuple[int, int]:
+    """(rows per tile, tiles) of q2 rows, at most `most` a tile, as even as
+    the tile count allows."""
+    tiles = _cdiv(q2, max(1, min(most, q2)))
+    return _cdiv(q2, tiles), tiles
+
+
+def _bf16_map(dims: tuple, box: tuple) -> tuple[tuple, tuple]:
+    """(byte strides of dims 1.., box) of a bf16 tensor map over `dims`
+    (innermost first) with a 128B swizzle, checked as cuTensorMapEncodeTiled
+    and the kernels require: strides 16-byte multiples below 2^40, box dims
+    1 to 256, the innermost 64 lanes (128 bytes)."""
+    strides = tuple(2 * math.prod(dims[:i + 1]) for i in range(len(dims) - 1))
+    if any(s % 16 or s >= 2 ** 40 for s in strides):
+        raise ValueError(f"tensor map over {dims}: strides {strides} out of range")
+    if any(not 1 <= n <= TMA_BOX_MAX for n in box) or box[0] != WG_LANES:
+        raise ValueError(f"tensor map over {dims}: box {box} out of range")
+    return strides, tuple(box)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Bf16Plan:
+    """K1-bf16's wgmma launch: segments of `sw` output columns, tiles of
+    `rows` padded rows of sw + 1 columns, a halo slot of `halo_rows` 128-byte
+    rows (two slots) and `wf_slots` wf slots of 16 KB; the tensor maps' dims
+    (innermost first), byte strides and boxes (x's and wf's loads, y's
+    stores); the tiles (segments x row tiles, 128-lane tiles, planes
+    B * Q1), a block each; the shared memory."""
+    sw: int
+    rows: int
+    halo_rows: int
+    wf_slots: int
+    x_dims: tuple
+    x_strides: tuple
+    x_box: tuple
+    wf_dims: tuple
+    wf_strides: tuple
+    wf_box: tuple
+    y_dims: tuple
+    y_strides: tuple
+    y_box: tuple
+    tiles: tuple
+    smem_bytes: int
+
+    @property
+    def args(self) -> tuple:
+        return self.sw, self.rows, self.halo_rows, self.wf_slots
+
+
+def k1_bf16_plan(x_shape: tuple, lout: int, to_phase: int) -> K1Bf16Plan | None:
+    """The wgmma launch of K1-bf16 on x (B, G1, G2, G3, L_in) to L_out lanes,
+    or None where L_in is no multiple of 64 (the mma.sync instance). Raises
+    ValueError on a shape the launch cannot take."""
+    b, g1, g2, g3, lin = x_shape
+    if lin % WG_LANES:
+        return None
+    q1, q2, q3 = (g + (1 if to_phase == 1 else -1) for g in (g1, g2, g3))
+    if min(q1, q2, q3) < 1 or lout % 128 or b * q1 > 65535:
+        raise ValueError(f"k1_bf16_plan: x {tuple(x_shape)} to {lout} lanes out of range")
+    sw, nseg = _segments(q3)
+    wv = sw + 1
+    rows, htiles = _even_rows(q2, K1_WG_ROWS // wv)
+    hr = (rows + 1) * wv
+    # the box (2 d-planes of hr rows) and the rows the taps read past the tile
+    halo_rows = 8 * _cdiv(max(2 * hr, K1_WG_ROWS + hr + wv + 1), 8)
+    fixed = 1024 + 2 * halo_rows * 128 + 8 * 4
+    wf_slots = min(WF_SLOTS_MAX, (SMEM_LIMIT - fixed) // (WF_SLOT_BYTES + 16))
+    if wf_slots < 2:
+        raise ValueError(f"k1_bf16_plan: x {tuple(x_shape)}: no room for the wf ring")
+    x_dims = (lin, g3, g2, g1, b)
+    x_strides, x_box = _bf16_map(x_dims, (WG_LANES, wv, rows + 1, 2, 1))
+    wf_dims = (lout, 8 * lin)
+    wf_strides, wf_box = _bf16_map(wf_dims, (64, 64))
+    y_dims = (lout, q3, q2, q1, b)
+    y_strides, y_box = _bf16_map(y_dims, (64, sw, rows, 1, 1))
+    return K1Bf16Plan(sw, rows, halo_rows, wf_slots, x_dims, x_strides, x_box, wf_dims,
+                      wf_strides, wf_box, y_dims, y_strides, y_box,
+                      (nseg * htiles, lout // 128, b * q1),
+                      fixed + wf_slots * (WF_SLOT_BYTES + 16))
+
+
 class FoldedConv3(_Counted):
     """The K1 wrapper: checks its operands, allocates the output, launches
     the instance of the operands' dtype on the current stream and counts
     launches."""
 
     def _kernel(self, dtype: torch.dtype):
+        plan_ints = 4 if dtype == torch.bfloat16 else 0  # K1-bf16's plan (k1_bf16_plan.args)
         return self._function(SOURCE, "dycon_folded_conv3", dtype,
-                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * (7 + plan_ints)
+                              + [ctypes.c_void_p])
 
     def __call__(self, x: torch.Tensor, wf: torch.Tensor, *, to_phase: int) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -169,11 +291,15 @@ class FoldedConv3(_Counted):
         if min(q) < 1 or b * q[0] > 65535:
             raise ValueError(f"folded_conv3: grid {tuple(x.shape[:4])} out of range")
         _check_dense("folded_conv3", x, wf)
+        plan = ()
+        if dtype == torch.bfloat16:
+            wg = k1_bf16_plan(tuple(x.shape), lout, to_phase)
+            plan = wg.args if wg is not None else (0, 0, 0, 0)
         y = torch.empty((b, *q, lout), device=x.device, dtype=dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = self._kernel(dtype)(x.data_ptr(), wf.data_ptr(), y.data_ptr(),
-                                      b, g1, g2, g3, lin, lout, to_phase, stream)
+                                      b, g1, g2, g3, lin, lout, to_phase, *plan, stream)
         if err != 0:
             raise RuntimeError(f"folded_conv3: kernel launch failed, cudaError {err}")
         self.by_dtype[dtype] += 1
@@ -211,22 +337,101 @@ def dw_tiles(lin: int, lout: int) -> int:
     return 8 * lin // (128 if lin % 16 == 0 else 64) * (lout // 128)
 
 
-def dw_splits(n_voxels: int, tiles: int, sms: int) -> tuple[int, int]:
-    """(splits, chunk) of K1-dW's split-K over `n_voxels`, each split a
-    whole number of 32-voxel stages and none empty. Of 1 to 4 full waves of
-    the card's resident blocks (DW_BLOCKS_PER_SM x `sms`), the split count
-    whose last wave is fullest, the fewest on a tie: the splits are equal,
-    so an idle slot in the last wave is time lost."""
+def _wave_splits(tiles: int, sms: int) -> int:
+    """Of 1 to 4 full waves of the card's resident blocks (one per SM), the
+    split count whose last wave is fullest, the fewest on a tie: the splits
+    are equal, so an idle slot in the last wave is time lost."""
     slots = DW_BLOCKS_PER_SM * sms
     least = -(-slots // tiles)
 
     def fill(s: int) -> float:
         return tiles * s / (-(-tiles * s // slots) * slots)
 
-    want = max(range(least, 4 * least + 1), key=lambda s: (fill(s), -s))
+    return max(range(least, 4 * least + 1), key=lambda s: (fill(s), -s))
+
+
+def dw_splits(n_voxels: int, tiles: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk) of K1-dW's split-K over `n_voxels`, each split a
+    whole number of 32-voxel stages and none empty, the split count by
+    _wave_splits."""
+    want = _wave_splits(tiles, sms)
     chunk = -(-n_voxels // want)
     chunk = -(-chunk // DW_STAGE_VOXELS) * DW_STAGE_VOXELS
     return -(-n_voxels // chunk), chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class DwBf16Plan:
+    """K1-dW-bf16's wgmma launch: voxel tiles of `rows` rows of `sw`
+    columns of one (b, qd) plane of dy (`ntiles` of them, `kpad` = the
+    tile's voxels rounded up to 16), `chunk` tiles per split over `splits`
+    splits, a ring of `slots` stages of `stage_bytes`; the tensor maps' dims
+    (innermost first), byte strides and boxes; the grid and shared memory."""
+    sw: int
+    rows: int
+    ntiles: int
+    kpad: int
+    splits: int
+    chunk: int
+    slots: int
+    stage_bytes: int
+    x_dims: tuple
+    x_strides: tuple
+    x_box: tuple
+    dy_dims: tuple
+    dy_strides: tuple
+    dy_box: tuple
+    grid: tuple
+    smem_bytes: int
+
+    @property
+    def args(self) -> tuple:
+        return self.splits, self.chunk, self.sw, self.rows, self.slots
+
+    @property
+    def chunk_voxels(self) -> int:
+        """The most voxels one split sums, padding included."""
+        return self.chunk * self.kpad
+
+
+def dw_bf16_plan(x_shape: tuple, lout: int, to_phase: int, sms: int) -> DwBf16Plan | None:
+    """The wgmma launch of K1-dW-bf16 on x (B, G1, G2, G3, L_in) and dy at
+    the grid to_phase gives, L_out lanes, on a card of `sms` SMs; None where
+    L_in is no multiple of 64 (the mma.sync instance). Raises ValueError on
+    a shape the launch cannot take."""
+    b, g1, g2, g3, lin = x_shape
+    if lin % WG_LANES:
+        return None
+    q1, q2, q3 = (g + (1 if to_phase == 1 else -1) for g in (g1, g2, g3))
+    if min(q1, q2, q3) < 1 or lout % 128:
+        raise ValueError(f"dw_bf16_plan: x {tuple(x_shape)} to {lout} lanes out of range")
+    sw, nseg = _segments(q3)
+    most = max(1, DW_WG_VOXELS // sw)
+    while True:  # the most rows whose stage leaves room for a ring of 2
+        rows, htiles = _even_rows(q2, most)
+        kpad = 16 * _cdiv(rows * sw, 16)
+        xrows = 8 * _cdiv((rows + 1) * (sw + 1) + 1, 8)  # the box and a zero row
+        stage_bytes = (xrows + 2 * kpad) * 128
+        slots = min(DW_SLOTS_MAX, (SMEM_LIMIT - 1024) // (stage_bytes + 16))
+        if slots >= 2 or rows == 1:
+            break
+        most = rows - 1
+    if slots < 2:
+        raise ValueError(f"dw_bf16_plan: x {tuple(x_shape)}: no room for the ring")
+    ntiles = b * q1 * htiles * nseg
+    tiles = 2 * (lin // WG_LANES) * (lout // 128)
+    chunk = min(_cdiv(ntiles, _wave_splits(tiles, sms)), max(1, DW_WG_MAX_CHUNK // kpad))
+    splits = _cdiv(ntiles, chunk)
+    if splits > 65535:
+        raise ValueError(f"dw_bf16_plan: x {tuple(x_shape)}: {splits} splits out of range")
+    x_dims = (lin, g3, g2, g1, b)
+    x_strides, x_box = _bf16_map(x_dims, (WG_LANES, sw + 1, rows + 1, 1, 1))
+    dy_dims = (lout, q3, q2, q1, b)
+    dy_strides, dy_box = _bf16_map(dy_dims, (64, sw, rows, 1, 1))
+    return DwBf16Plan(sw, rows, ntiles, kpad, splits, chunk, slots, stage_bytes, x_dims,
+                      x_strides, x_box, dy_dims, dy_strides, dy_box,
+                      (2 * (lin // WG_LANES), lout // 128, splits),
+                      1024 + slots * (stage_bytes + 16))
 
 
 class FoldedConv3Dw(_Counted):
@@ -235,8 +440,10 @@ class FoldedConv3Dw(_Counted):
     current stream and counts launches."""
 
     def _kernel(self, dtype: torch.dtype):
+        plan_ints = 3 if dtype == torch.bfloat16 else 0  # sw, rows, slots (dw_bf16_plan)
         return self._function(DW_SOURCE, "dycon_folded_conv3_dw", dtype,
-                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * (9 + plan_ints)
+                              + [ctypes.c_void_p])
 
     def __call__(self, x: torch.Tensor, dy: torch.Tensor, *, to_phase: int) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -265,16 +472,22 @@ class FoldedConv3Dw(_Counted):
         if n_voxels * max(lin, lout) >= 2 ** 31:
             raise ValueError(f"folded_conv3_dw: {n_voxels} voxels out of range")
         _check_dense("folded_conv3_dw", x, dy)
-        tiles = dw_tiles(lin, lout)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits, chunk = dw_splits(n_voxels, tiles, sms)
+        wg = dw_bf16_plan(tuple(x.shape), lout, to_phase, sms) if dtype == torch.bfloat16 \
+            else None
+        if wg is not None:
+            args = wg.args
+        else:
+            args = dw_splits(n_voxels, dw_tiles(lin, lout), sms)
+            args += (0, 0, 0) if dtype == torch.bfloat16 else ()
+        splits = args[0]
         ws = torch.empty((splits, 8 * lin, lout), device=x.device, dtype=torch.float32)
         dwf = torch.empty((2, 2, 2, lin, lout), device=x.device, dtype=dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = self._kernel(dtype)(x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
                                       dwf.data_ptr(), b, g1, g2, g3, lin, lout, to_phase,
-                                      splits, chunk, stream)
+                                      *args, stream)
         if err != 0:
             raise RuntimeError(f"folded_conv3_dw: kernel launch failed, cudaError {err}")
         self.by_dtype[dtype] += 1

@@ -119,7 +119,7 @@ def main() -> int:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         kernels[name] = fc.FoldedConv3Dw()
-        kernels[name]._fn = fn
+        kernels[name]._fns[torch.float32] = fn
 
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
