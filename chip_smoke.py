@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from the checkout and drives the port's
 paths, Pancreas sliding-window evaluation, Pancreas DyCON training,
 ISLES-2022 training with whole-volume evaluation, BraTS-2019 training
 with sliding-window evaluation, and the VNet's (`--model vnet`) Pancreas
-training and evaluation and ASPP's (`--use_aspp 1`) training, and bf16
+training and evaluation and ASPP's (`--use_aspp 1`) training, bf16
 compute (`--compute_dtype bfloat16`) of both families, each through its
-CLI.
+CLI, and then volume groups with pipelined evaluation, data-parallel
+training and the preprocess CLIs.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -82,22 +83,22 @@ Phases, each timed on its own line:
      voxels agree);
  14. training end to end: a synthetic Pancreas tree of 16 training and 2
      validation cases of (120, 120, 100) as .npz, the train CLI's Trainer
-     at the Pancreas defaults for 4 steps (val and save every 2), with the
+     at the Pancreas defaults for 2 steps (val and save every 2), with the
      K1, K1 dx and K1-dW counts set to 0 before each step and read after it
-     (16 + 7 = 23 K1 and 8 K1-dW per step), finite losses, step 4 and the
-     checkpoints; then `--max_iterations 6 --resume <the step-4
+     (16 + 7 = 23 K1 and 8 K1-dW per step), finite losses, step 2 and the
+     checkpoint; then `--max_iterations 3 --resume <the step-2
      checkpoint>` (the run directory encodes max_iterations, so `auto`
      would look in a new one), which must start from exactly the saved
-     state at step 4 and end at 6; ms per step, peak memory, validation
+     state at step 2 and end at 3; ms per step, peak memory, validation
      vols/s;
  15. isles_train: the same for ISLES-2022 through the ISLES train CLI's
      Trainer at its defaults (50 + 2 synthetic (112, 112, 73) .npz cases,
      whole-volume validation), with one K2 forward and one K2 backward
      call per step besides the K1 and K1-dW launches;
- 16. isles_eval: the ISLES test CLI on the first run's best checkpoint (8
-     K1 launches per volume), its label maps against the plain (NDHWC)
-     model's whole-volume prediction with the same weights (>= 99.99 % of
-     voxels agree); vols/s;
+ 16. isles_eval: the ISLES test CLI on the first run's best checkpoint
+     with --group 1 (8 K1 launches per volume, at batch 1), its label maps
+     against the plain (NDHWC) model's whole-volume prediction with the
+     same weights (>= 99.99 % of voxels agree); vols/s;
  17. k1_brats: K1 forward, dx and K1-dW at the 8 BraTS training shapes
      (patch 96^3, B = TRAIN_BATCH: the eval fold grids at twice the eval
      batch), the gates of 4, 6 and 5;
@@ -127,7 +128,7 @@ Phases, each timed on its own line:
      eval mode, within tests/test_vnet_folded.py's tolerances: seg and sdf
      atol 5e-4 + rtol 5e-4, features atol 1e-3 + rtol 1e-3;
  23. vnet_train: the Pancreas train CLI's Trainer with `--model vnet` at the
-     Pancreas defaults on phase 14's tree, 4 steps and a resume to 6 as in
+     Pancreas defaults on phase 14's tree, 2 steps and a resume to 3 as in
      14, with 12 + 5 K1 and 6 K1-dW launches a step; the run directory
      VNET_..., the best checkpoint vnet_best_model.pt;
  24. vnet_eval: the Pancreas test CLI with `--model vnet` on that best
@@ -159,7 +160,7 @@ Phases, each timed on its own line:
      max|plain bf16 - plain float32| (the float32 model the yardstick; the
      rule of tests/test_torch_bf16.py), K1-bf16 launches only;
  30. bf16_train: the Pancreas train CLI's Trainer with --compute_dtype
-     bfloat16 at the Pancreas defaults, 4 steps and a resume to 6 (16 + 7
+     bfloat16 at the Pancreas defaults, 2 steps and a resume to 3 (16 + 7
      K1-bf16 and 8 K1-dW-bf16 a step, 0 float32 launches), then with
      --model vnet 2 steps and a resume to 3 (12 + 5 and 6); ms per step and
      peak memory beside phases 14's and 23's float32 figures;
@@ -172,7 +173,39 @@ Phases, each timed on its own line:
  32. step_vs_cpu_bf16: phase 8's check in its "pancreas_bf16" and
      "vnet_bf16" cases (train/device_check.py: the bf16 tolerances, a
      float64 CPU step the yardstick);
- 33. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 33. group_eval: volume groups and pipelining at the JAX headline protocol
+     (8 seeded volumes of (192, 192, 64), patch 96^3, stride 16/4: 49
+     patches a volume), the folded UNet3D in float32 and then bf16, patch
+     batch 4: group 1 depth 1, group 8 depth 1 and group 8 depth 2, each's
+     vols/s on its own line beside the device-resident ceiling of its group
+     size (`device_resident_runner`) and its K1 launches (8 a forward chunk:
+     104 chunks at group 1, 98 at group 8); the grouped scores within 1e-6 of
+     group 1's and the labels equal wherever |score - 0.5| > 1e-6, and
+     whether they were bit-identical; two replicas (`devices=[cuda:0,
+     cuda:0]`) held the same way; the ISLES whole-volume engine at groups 2
+     and 4 against group 1 (8 volumes of (112, 112, 73), vols/s each): its
+     forward's batch changes with the group, so the batched logits are held
+     within 1e-4 x max|logit| of the single ones and the largest probability
+     difference d is printed, and the labels must equal group 1's wherever
+     the single probability is more than max(d, 1e-6) from 0.5;
+ 34. dp_train: the Pancreas train CLI's entry (train/trainer.py:train) at the
+     Pancreas defaults with --data_parallel 1 (one spawned rank, NCCL) for 2
+     steps against the plain trainer at the same seed (logged scalars within
+     rtol 2e-5, the step-2 checkpoint within atol 1e-5 + rtol 1e-4); then one
+     train step on the global batch of 8 (patch 112x112x96, 4 labeled) in two
+     spawned ranks on the one card, joined by gloo over CUDA tensors (NCCL
+     cannot put two ranks on one GPU), against the same step in one process:
+     the UNet3D and the VNet, loss rtol 2e-5, the student's and teacher's
+     parameters atol 1e-5 + rtol 1e-4 (tests/test_train.py's DP test), their
+     BatchNorm running stats within 1e-5 + 1e-3 x the tensor's largest
+     magnitude (STATS_REL), rank 0's K1 / dx / K1-dW launches; ms per step
+     for one and two ranks;
+ 35. preprocess: fabricated NIfTI trees written with the port's nifti.save (2
+     BraTS cases of 240 x 240 x 155, four modalities and seg; 5 ISLES cases of
+     (112, 112, 73), DWI and mask), both preprocess CLIs with --format npz,
+     the cases read back through BraTS2019 and ISLESDataset: the target
+     shapes (192, 192, 64) and (112, 112, 64), binary labels, the 4 / 1 split;
+ 36. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
@@ -206,7 +239,7 @@ PATCH_BATCH = 4
 VOLUME = (144, 144, 112)
 TRAIN_BATCH = 8
 TRAIN_VOLUME = (120, 120, 100)
-TRAIN_STEPS, RESUME_STEPS = 4, 6
+TRAIN_STEPS, RESUME_STEPS = 2, 3  # 4, 6 before phases 33-35 were added
 SEED = 0
 REPS = 3  # timed repetitions per kernel call (5 before the ISLES phases were added)
 # published dense peaks: (float32 FLOP/s on the CUDA cores, TF32 FLOP/s on
@@ -942,7 +975,7 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag, n_steps=TRAIN_STEP
 
 def phase_train(torch, tmp):
     """Training end to end through the train CLI's Trainer at the Pancreas
-    defaults: 4 steps, then a resume from step 4 to 6; 16 + 7 K1 and 8
+    defaults: 2 steps, then a resume from step 2 to 3; 16 + 7 K1 and 8
     K1-dW launches a step."""
     import numpy as np
 
@@ -969,8 +1002,8 @@ def phase_isles_train(torch, tmp):
     ISLES defaults (batch 8 of which 4 labeled, labelnum 10 = 45 labeled
     volumes, patch 96x96x64, fecl_chunk 512 through the fused FeCL): a
     synthetic tree of ISLES_TRAIN_CASES + ISLES_VAL_CASES volumes of
-    ISLES_VOLUME as .npz, 4 steps with whole-volume validation and a save
-    every 2, then a resume from step 4 to 6; 16 + 7 K1, 8 K1-dW and one K2
+    ISLES_VOLUME as .npz, 2 steps with whole-volume validation and a save
+    every 2, then a resume from step 2 to 3; 16 + 7 K1, 8 K1-dW and one K2
     call each way a step."""
     import numpy as np
 
@@ -1023,8 +1056,10 @@ def phase_isles_eval(torch, device, isles):
             preds.append(pred)
             yield pred, label
 
+    # --group 1: one volume a forward, the batch-1 shapes the kernels line
+    # times here (the CLI's auto group, 2 on cuda, runs in phase group_eval)
     argv = ["--root_dir", isles["root"], "--snapshot_root", isles["runs"], "--device", "cuda",
-            "--max_iterations", str(TRAIN_STEPS)]
+            "--max_iterations", str(TRAIN_STEPS), "--group", "1"]
     folded_conv3.launches = 0
     with mock.patch.object(evaluator.WholeVolumeInference, "map", tee):
         t0 = time.perf_counter()
@@ -1057,9 +1092,9 @@ def phase_brats_train(torch, tmp):
     """BraTS-2019 training end to end through the BraTS train CLI's Trainer
     at the brats19 defaults (patch 96^3, batch 8 of which 4 labeled,
     labelnum 25, dense FeCL over N = 1728): a synthetic tree of
-    BRATS_TRAIN_CASES + BRATS_VAL_CASES .npz cases stored as BRATS_STORED, 4
+    BRATS_TRAIN_CASES + BRATS_VAL_CASES .npz cases stored as BRATS_STORED, 2
     steps with sliding-window validation and a save every 2 (so hd95_every
-    is 1), then a resume from step 4 to 6; 16 + 7 K1 and 8 K1-dW launches a
+    is 1), then a resume from step 2 to 3; 16 + 7 K1 and 8 K1-dW launches a
     step and no K2 call. train/HD95 must be logged at every step, the perf/
     scalars at every validation, and <snapshot>/code must hold the port's
     package and no built library."""
@@ -1093,7 +1128,7 @@ def phase_brats_train(torch, tmp):
           f"{tags.get('perf/step_ms_p50')}, perf/host_rss_gb at {tags.get('perf/host_rss_gb')}")
     _check(hd95 == list(range(1, TRAIN_STEPS + 1)), f"brats_train: train/HD95 at {hd95}")
     val_steps = sorted(tags.get("info/Dice", []))
-    _check(val_steps == [2, 4] and all(sorted(tags.get(t, [])) == val_steps for t in
+    _check(val_steps == list(range(2, TRAIN_STEPS + 1, 2)) and all(sorted(tags.get(t, [])) == val_steps for t in
                                        ("perf/step_ms_p50", "perf/host_rss_gb")),
            f"brats_train: validation at {val_steps}, perf/ scalars {tags}")
     code = os.path.join(out["snapshot"], "code")
@@ -1242,7 +1277,7 @@ def phase_vnet_model(torch, device, gen):
 
 def phase_vnet_train(torch, tmp, root):
     """The Pancreas train CLI's Trainer with --model vnet at the Pancreas
-    defaults on the tree `root` of phase_train: 4 steps and a resume to 6,
+    defaults on the tree `root` of phase_train: 2 steps and a resume to 3,
     12 + 5 K1 and 6 K1-dW launches a step; the run directory is VNET_...
     and holds vnet_best_model.pt."""
     import numpy as np
@@ -1505,8 +1540,8 @@ def phase_bf16_model(torch, device, gen):
 
 def phase_bf16_train(torch, tmp, root, model="unet_3D"):
     """The Pancreas train CLI's Trainer with --compute_dtype bfloat16 at the
-    Pancreas defaults on phase 14's tree: the UNet3D 4 steps and a resume to
-    6 (16 + 7 K1-bf16 and 8 K1-dW-bf16 a step), the VNet 2 and a resume to 3
+    Pancreas defaults on phase 14's tree: the UNet3D 2 steps and a resume to
+    3 (16 + 7 K1-bf16 and 8 K1-dW-bf16 a step), the VNet 2 and a resume to 3
     (12 + 5 and 6); no float32 K1 or K1-dW launch; finite losses."""
     import numpy as np
 
@@ -1537,7 +1572,7 @@ def phase_bf16_eval(torch, device, bf16):
     the share of voxels whose label differs at most BF16_MODEL_K x the share
     that differs between the plain bf16 and the plain float32 engines, the
     float32 model the yardstick as in bf16_model; and against the float32
-    folded engine's (recorded); vols/s. Why not a fixed share: after 4 steps
+    folded engine's (recorded); vols/s. Why not a fixed share: after a few steps
     the model's scores crowd 0.5, and bf16's logit error (bf16_model: 0.3
     of max ~7 at seed-0 weights) flips labels within it; the first run's
     fixed gate of 99.9 % equal labels failed at 99.802 % while the CLI's
@@ -1602,6 +1637,417 @@ def phase_bf16_eval(torch, device, bf16):
                f"{BF16_MODEL_K} x {yard}")
     return dict(vols_per_s=len(preds) / cli_s, k1_launches=launches[torch.bfloat16],
                 agreement=agreement)
+
+
+TRAIN_PATCH = (112, 112, 96)  # the Pancreas training patch
+GROUP_VOLUME = (192, 192, 64)  # the JAX headline protocol: 49 patches a volume at 96^3, 16/4
+GROUP_VOLUMES, GROUP = 8, 8
+GROUP_SCORE_ATOL = 1e-6
+WV_LOGIT_REL = 1e-4  # the whole volume's batched forward against batch 1, x max|logit|
+ISLES_GROUP = 4
+DP_STEPS = 2
+# dp_train: the BatchNorm running stats of the 2-rank step against the
+# 1-process one, x the tensor's largest magnitude. A channel's batch mean is
+# a float32 sum of ~2352-9216 cancelling values of ~1e2 whose order the
+# split changes (the card's first run: 4.3e-5 at max 0.22 in the projection
+# head's running mean after one step, 2e-4 of the tensor); the parameters
+# keep tests/test_train.py's atol 1e-5 + rtol 1e-4
+STATS_REL = 1e-3
+BRATS_RAW = (240, 240, 155)  # a BraTS-2019 scan, four modalities and seg
+ISLES_RAW, ISLES_RAW_CASES = (112, 112, 73), 5
+
+
+def _hold_scores(tag, got, want):
+    """Grouped (label, score) pairs against single-volume ones: scores
+    within GROUP_SCORE_ATOL, labels equal wherever |score - 0.5| >
+    GROUP_SCORE_ATOL. Returns whether every score was bit-identical."""
+    import numpy as np
+
+    identical = True
+    for i, ((label_g, score_g), (label_s, score_s)) in enumerate(zip(got, want)):
+        diff = float(np.abs(score_g - score_s).max())
+        sure = np.abs(score_s.astype(np.float64) - 0.5) > GROUP_SCORE_ATOL
+        _check(label_g.shape == label_s.shape and np.isfinite(score_g).all(),
+               f"{tag} volume {i}: output")
+        _check(diff <= GROUP_SCORE_ATOL, f"{tag} volume {i}: max |score diff| {diff}")
+        _check(np.array_equal(label_g[sure], label_s[sure]), f"{tag} volume {i}: labels differ")
+        identical &= bool(np.array_equal(score_g, score_s))
+    return identical
+
+
+def phase_group_eval(torch, device):
+    """Volume groups and pipelining at the headline protocol (module doc,
+    phase 33): the folded UNet3D in float32 and then bf16 over
+    GROUP_VOLUMES seeded volumes, group 1 depth 1 (the single-volume
+    reference), group 8 depth 1 and group 8 depth 2, each with its
+    vols/s beside the device-resident ceiling of its group size and its K1
+    launches (8 a forward chunk); the grouped scores held to the
+    single-volume ones; two replicas on the one card; the ISLES whole-volume
+    engine at group ISLES_GROUP against group 1."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch import weights
+    from dycon_paper_replication_tpu_torch.data.synthetic import _ellipsoid_volume
+    from dycon_paper_replication_tpu_torch.eval import (
+        SlidingWindowInference, WholeVolumeInference, compute_origins)
+    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+
+    rng = np.random.default_rng(SEED)
+    vols = [_ellipsoid_volume(rng, GROUP_VOLUME) for _ in range(GROUP_VOLUMES)]
+    k = len(compute_origins(GROUP_VOLUME, PATCH, STRIDE_XY, STRIDE_Z))
+    chunks = {1: GROUP_VOLUMES * math.ceil(k / PATCH_BATCH),
+              GROUP: math.ceil(GROUP * k / PATCH_BATCH) * (GROUP_VOLUMES // GROUP)}
+    params, state = weights.init_jax_tree(UNet3DConfig(), seed=SEED)
+    sd = weights.jax_tree_to_state_dict(params, state)
+    counters = _dtype_counters(torch)
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        net = UNet3D(UNet3DConfig(layout="folded", compute_dtype=dtype)).to(device).eval()
+        net.load_state_dict(sd)
+        transfer = np.float16 if dtype == torch.bfloat16 else np.float32
+        sw = SlidingWindowInference(net, PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH,
+                                    transfer_dtype=transfer)
+        ceilings = {}
+        for group in (1, GROUP):
+            runner = sw.device_resident_runner([np.asarray(v[0], transfer)
+                                                for v in vols[:group]])
+            runner()
+            ceilings[group] = group / (_time_ms(torch, runner, reps=1) / 1e3)
+        runs = {}
+        for group, depth in ((1, 1), (GROUP, 1), (GROUP, 2)):
+            counters[f"k1_{tag}"].launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [(lab, sc) for lab, sc, _ in sw.map(vols, return_score=True, group=group,
+                                                       depth=depth)]
+            torch.cuda.synchronize()
+            vps = GROUP_VOLUMES / (time.perf_counter() - t0)
+            launches = counters[f"k1_{tag}"].launches
+            print(f"group_eval {tag}: group {group} depth {depth}: {vps:.4f} vols/s, "
+                  f"device-resident ceiling {ceilings[group]:.4f} vols/s, "
+                  f"K1 launches {launches}", flush=True)
+            _check(launches == 8 * chunks[group],
+                   f"group_eval {tag} group {group}: K1 launches {launches} != 8 * {chunks[group]}")
+            runs[(group, depth)] = (res, vps)
+        single = runs[(1, 1)][0]
+        for key in ((GROUP, 1), (GROUP, 2)):
+            same = _hold_scores(f"group_eval {tag} group {key[0]} depth {key[1]}",
+                                runs[key][0], single)
+            print(f"group_eval {tag}: group {key[0]} depth {key[1]} scores bit-identical to "
+                  f"group 1: {same}")
+        out[tag] = {f"g{g}_d{d}": vps for (g, d), (_, vps) in runs.items()}
+        out[tag].update({f"ceiling_g{g}": c for g, c in ceilings.items()})
+        if dtype == torch.float32:
+            two = SlidingWindowInference(net, PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH,
+                                         devices=[device, device])
+            counters["k1_f32"].launches = 0
+            t0 = time.perf_counter()
+            res = [(lab, sc) for lab, sc, _ in two.map(vols, return_score=True, group=GROUP)]
+            vps = GROUP_VOLUMES / (time.perf_counter() - t0)
+            same = _hold_scores("group_eval replicas", res, single)
+            print(f"group_eval f32: 2 replicas on {device}, group {GROUP}: {vps:.4f} vols/s, "
+                  f"K1 launches {counters['k1_f32'].launches}, scores bit-identical: {same}")
+            _check(counters["k1_f32"].launches >= 8 * chunks[GROUP], "replicas: K1 launches")
+        del sw, net
+
+    # the ISLES whole-volume engine: group ISLES_GROUP against group 1
+    params, state = weights.init_jax_tree(UNet3DConfig(scale_factor=4), seed=SEED)
+    net = UNet3D(UNet3DConfig(layout="folded", scale_factor=4)).to(device).eval()
+    net.load_state_dict(weights.jax_tree_to_state_dict(params, state))
+    isles = [_ellipsoid_volume(rng, ISLES_VOLUME) for _ in range(2 * ISLES_GROUP)]
+    wv = WholeVolumeInference(net, ISLES_PATCH)
+    wv_runs = {}
+    for group in (1, 2, ISLES_GROUP):
+        counters["k1_f32"].launches = 0
+        t0 = time.perf_counter()
+        wv_runs[group] = [p for p, _ in wv.map(isles, group=group)]
+        vps = len(isles) / (time.perf_counter() - t0)
+        print(f"group_eval isles: group {group}: {vps:.4f} vols/s, K1 launches "
+              f"{counters['k1_f32'].launches}")
+        _check(counters["k1_f32"].launches == 8 * len(isles) // group,
+               f"isles group {group}: K1 launches {counters['k1_f32'].launches}")
+        out[f"isles_g{group}"] = vps
+    # The sliding window's chunks keep their batch, the whole volume's forward
+    # does not: a batch of g may round differently. So the grouped forward's
+    # foreground probabilities are held to the single forward's within
+    # WV_LOGIT_REL x max|logit| on the logits (the folded-vs-plain model gate)
+    # and their difference is reported; the engine's labels must equal the
+    # single forward's wherever its probability is further from 0.5 than
+    # that difference and GROUP_SCORE_ATOL.
+    worst = {}
+    with torch.inference_mode():
+        padded = [wv._pad(np.asarray(image, np.float32)) for image, _ in isles]
+        xs = torch.stack([torch.from_numpy(p) for p, _ in padded])[..., None].to(device)
+        single = torch.cat([net(xs[i:i + 1], with_projection=False)[1] for i in range(len(xs))])
+        for group in (2, ISLES_GROUP):
+            batched = torch.cat([net(xs[i:i + group], with_projection=False)[1]
+                                 for i in range(0, len(xs), group)])
+            d_logit = float((batched - single).abs().max())
+            p_s, p_b = torch.softmax(single, -1)[..., 1], torch.softmax(batched, -1)[..., 1]
+            d_p = float((p_b - p_s).abs().max())
+            scale = float(single.abs().max())
+            worst[group] = (d_logit, d_p)
+            _check(d_logit <= WV_LOGIT_REL * scale,
+                   f"isles group {group}: logits differ by {d_logit} (max |logit| {scale})")
+            for i, (_, sl) in enumerate(padded):
+                sure = ((p_s[i] - 0.5).abs() > max(d_p, GROUP_SCORE_ATOL)).cpu().numpy()[sl]
+                _check(np.array_equal(wv_runs[1][i][sure], wv_runs[group][i][sure])
+                       and np.array_equal(wv_runs[1][i][sure],
+                                          (p_s[i] > 0.5).cpu().numpy()[sl][sure]),
+                       f"isles group {group} volume {i}: labels differ from group 1")
+            flips = sum(int((a != b).sum()) for a, b in zip(wv_runs[1], wv_runs[group]))
+            print(f"group_eval isles: group {group} against group 1: max |logit diff| "
+                  f"{d_logit} (max |logit| {scale}), max |probability diff| {d_p}; "
+                  f"{flips} of {sum(a.size for a in wv_runs[1])} labels differ")
+    out["isles_worst"] = worst
+    return out
+
+
+def _dp_step_rank(rank, world, device, cases):
+    """One rank of phase dp_train's step check: each case's step twice from
+    its initial state (the first warms up), the second timed, with this
+    rank's K1 launches. Defined here so that spawned ranks import only this
+    script and the port."""
+    import torch
+
+    return _dp_steps(torch, device, cases, rank, world)
+
+
+def _dp_steps(torch, device, cases, rank=0, world=1):
+    from dycon_paper_replication_tpu_torch import parallel
+    from dycon_paper_replication_tpu_torch.config import make_config
+    from dycon_paper_replication_tpu_torch.models import build_model
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.train.state import create_train_state
+    from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
+
+    out = {}
+    for name, case in cases.items():
+        b = len(case["batch"]["label"])
+        cfg = make_config("pancreas", model=case["model"], batch_size=b, labeled_bs=b // 2,
+                          patch_size=case["batch"]["label"].shape[1:], device=str(device))
+        shard = parallel.Shard(rank, world, b, b // 2) if world > 1 else None
+        batch = parallel.shard_batch(shard, case["batch"])
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        step = build_train_step(cfg, lambda s: cfg.base_lr, shard)
+        for rep in range(2):
+            student = build_model(case["net_cfg"])
+            student.load_state_dict(case["state"])
+            state = create_train_state(student.to(device))
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            for w in (folded_conv3, folded_conv3_dx, folded_conv3_dw):
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vec, _ = step(state, batch, gen, StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        models = (("student", state.student), ("teacher", state.teacher))
+        out[name] = dict(vec=vec.cpu(), ms=ms,
+                         params={f"{m}.{k}": v.detach().cpu() for m, mod in models
+                                 for k, v in mod.named_parameters()},
+                         stats={f"{m}.{k}": v.cpu() for m, mod in models
+                                for k, v in mod.named_buffers()},
+                         launches=dict(k1=folded_conv3.launches, k1_dx=folded_conv3_dx.launches,
+                                       k1_dw=folded_conv3_dw.launches))
+    return out
+
+
+def phase_dp_train(torch, device, tmp, root):
+    """Data parallelism on the one card (module doc, phase 34): the Pancreas
+    train CLI's entry at its defaults with --data_parallel 1 (one spawned
+    rank, NCCL) for DP_STEPS steps against the plain trainer in this
+    process at the same seed; then one step on the global batch of
+    TRAIN_BATCH in two spawned gloo ranks on the card (NCCL cannot put two
+    ranks on one GPU; gloo all-reduces the CUDA tensors) against the same
+    step in one process, for the UNet3D and the VNet: loss rtol 2e-5,
+    parameters atol 1e-5 + rtol 1e-4 (tests/test_train.py's DP test), the
+    BatchNorm running stats within 1e-5 + STATS_REL x max|tensor|."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch import parallel, weights
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.models import model_config
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
+        folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    def close(tag, got, want, atol=1e-5, rtol=1e-4, per_tensor=False):
+        """Every tensor of `got` within atol + rtol |want| elementwise, or
+        with `per_tensor` within atol + rtol max|want| (a running mean of a
+        channel can cancel to ~0 against activations of ~100); the largest
+        absolute difference."""
+        _check(got.keys() == want.keys(), f"{tag}: tensor names differ")
+        worst = 0.0
+        for k in want:
+            g, w = got[k].double(), want[k].double()
+            bound = atol + rtol * (w.abs().max() if per_tensor else w.abs())
+            diff = (g - w).abs()
+            _check(bool((diff <= bound).all()), f"{tag} {k}: max |diff| {float(diff.max())} "
+                   f"beyond atol {atol} + rtol {rtol} (max |want| {float(w.abs().max())})")
+            worst = max(worst, float(diff.max()))
+        return worst
+
+    def losses(snapshot):
+        rows = [json.loads(line) for line in open(os.path.join(snapshot, "metrics.jsonl"))]
+        return {(r["step"], r["tag"]): r["value"] for r in rows if r["tag"].startswith("info/")}
+
+    runs = {}
+    for mode in ("plain", "dp1"):
+        argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, f"dp_{mode}"),
+                "--device", "cuda", "--max_iterations", str(DP_STEPS),
+                "--save_every", str(DP_STEPS)]
+        cfg = config_from_args("pancreas", argv + (["--data_parallel", "1"] if mode == "dp1"
+                                                   else []))
+        for w in (folded_conv3, folded_conv3_dx, folded_conv3_dw):
+            w.launches = 0
+        t0 = time.perf_counter()
+        ttrainer.train(cfg)
+        wall = time.perf_counter() - t0
+        ckpt = torch.load(checkpoint.iter_checkpoint_path(cfg.snapshot_path(), DP_STEPS),
+                          map_location="cpu", weights_only=False)
+        runs[mode] = (losses(cfg.snapshot_path()), ckpt, wall)
+        ran = dict(k1=folded_conv3.launches, k1_dx=folded_conv3_dx.launches,
+                   k1_dw=folded_conv3_dw.launches)
+        print(f"dp_train: {mode} trainer, {DP_STEPS} steps, wall {wall:.3f} s (K1 launches in "
+              f"this process {ran})", flush=True)
+        # the plain trainer runs here, the --data_parallel 1 rank in its own process
+        want = {k: DP_STEPS * n for k, n in UNET_STEP_LAUNCHES.items()} if mode == "plain" \
+            else {k: 0 for k in UNET_STEP_LAUNCHES}
+        _check(ran == want, f"dp_train {mode}: launches in this process {ran}, want {want}")
+    (l_plain, c_plain, _), (l_dp, c_dp, _) = runs["plain"], runs["dp1"]
+    _check(l_plain.keys() == l_dp.keys() and len(l_plain) >= DP_STEPS, "dp_train: logged tags")
+    for k in l_plain:
+        _check(math.isclose(l_dp[k], l_plain[k], rel_tol=2e-5, abs_tol=1e-7),
+               f"dp_train --data_parallel 1 {k}: {l_dp[k]} vs {l_plain[k]}")
+    worst = close("dp_train --data_parallel 1", _flatten_ckpt(c_dp), _flatten_ckpt(c_plain))
+    print(f"dp_train: --data_parallel 1 (NCCL, world 1) against the plain trainer: "
+          f"{len(l_plain)} logged scalars within rtol 2e-5, the step-{DP_STEPS} checkpoint "
+          f"within atol 1e-5 + rtol 1e-4 (max |diff| {worst:.3g})")
+
+    rng = np.random.default_rng(SEED)
+    label = np.zeros((TRAIN_BATCH,) + TRAIN_PATCH, np.int32)
+    for b in range(TRAIN_BATCH):
+        c = rng.uniform(0.3, 0.7, 3) * TRAIN_PATCH
+        r = rng.uniform(0.2, 0.4, 3) * TRAIN_PATCH
+        grid = np.ogrid[tuple(slice(0, s) for s in TRAIN_PATCH)]
+        label[b] = sum(((g - ci) / ri) ** 2 for g, ci, ri in zip(grid, c, r)) <= 1.0
+    image = (0.4 * label + 0.1 * rng.standard_normal(label.shape)).astype(np.float32)[..., None]
+    cases = {}
+    for model in ("unet_3D", "vnet"):
+        net_cfg = model_config(model, layout="folded", scaler=2)
+        p, s = weights.init_jax_tree(net_cfg, seed=SEED)
+        cases[model] = dict(model=model, net_cfg=net_cfg, batch={"image": image, "label": label},
+                            state=weights.jax_tree_to_state_dict(p, s))
+    one = _dp_steps(torch, device, cases)
+    two = parallel.launch(_dp_step_rank, 2, device="cuda", devices=[str(device)] * 2,
+                          backend="gloo", args=(cases,), timeout=600)
+    out = {}
+    for model in cases:
+        g, w = two[model], one[model]
+        loss_g, loss_w = float(g["vec"][0]), float(w["vec"][0])
+        _check(math.isclose(loss_g, loss_w, rel_tol=2e-5), f"dp_train {model}: 2-rank loss "
+               f"{loss_g} vs {loss_w}")
+        worst = close(f"dp_train {model}", g["params"], w["params"])
+        worst_stats = close(f"dp_train {model} BatchNorm stats", g["stats"], w["stats"],
+                            rtol=STATS_REL, per_tensor=True) if w["stats"] else 0.0
+        want = UNET_STEP_LAUNCHES if model == "unet_3D" else VNET_STEP_LAUNCHES
+        _check(all(g["launches"][k] == want[k] for k in want),
+               f"dp_train {model}: rank 0 launches {g['launches']}, want {want}")
+        print(f"dp_train {model}: 2 gloo ranks on one card, global batch {TRAIN_BATCH}: "
+              f"{g['ms']:.3f} ms/step (rank 0; one rank in one process {w['ms']:.3f}); loss "
+              f"{loss_g} vs {loss_w}; student and teacher parameters within atol 1e-5 + rtol "
+              f"1e-4 (max |diff| {worst:.3g}), BatchNorm running stats within 1e-5 + "
+              f"{STATS_REL} x max|tensor| (max |diff| {worst_stats:.3g}); rank 0 launches "
+              f"{g['launches']}",
+              flush=True)
+        out[model] = dict(ms_one=w["ms"], ms_two=g["ms"])
+    return out
+
+
+def _flatten_ckpt(ckpt):
+    """{name: tensor} of a saved train state's student, teacher and momentum."""
+    out = {}
+    for key in ("model", "teacher", "momentum"):
+        for k, v in ckpt[key].items():
+            out[f"{key}.{k}"] = v
+    return out
+
+
+def phase_preprocess(torch, tmp):
+    """The preprocess CLIs on fabricated NIfTI trees (module doc, phase 35):
+    2 BraTS cases of BRATS_RAW (four modalities and seg, int16 .nii), 5
+    ISLES cases of ISLES_RAW (.nii.gz, DWI and mask), written with the
+    port's nifti.save; both CLIs with --format npz (this machine has no
+    h5py); the cases read back through the port's datasets: the target
+    shapes, binary labels with foreground, the ISLES 80/20 split."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.cli import preprocess_brats19, preprocess_isles22
+    from dycon_paper_replication_tpu_torch.data import (
+        BRATS_TARGET_SHAPE, ISLES_TARGET_SHAPE, BraTS2019, ISLESDataset, nifti)
+
+    rng = np.random.default_rng(SEED)
+    src, out = os.path.join(tmp, "brats_nifti"), os.path.join(tmp, "brats_pre")
+    cases = [f"BraTS19_TCIA_{i:03d}_1" for i in range(2)]
+    grid = np.ogrid[tuple(slice(0, s) for s in BRATS_RAW)]
+    for i, case in enumerate(cases):
+        d = os.path.join(src, "HGG" if i == 0 else "LGG", case)
+        os.makedirs(d)
+        tumour = sum(((g - c) / r) ** 2 for g, c, r in
+                     zip(grid, (120 + 10 * i, 110, 70), (30, 25, 20))) <= 1.0
+        for mod in ("t1", "t1ce", "t2", "flair"):
+            vol = rng.integers(0, 600, BRATS_RAW).astype(np.int16) + 400 * tumour
+            nifti.save(os.path.join(d, f"{case}_{mod}.nii"), vol.astype(np.int16))
+        nifti.save(os.path.join(d, f"{case}_seg.nii"), (tumour * 2).astype(np.uint8))
+    t0 = time.perf_counter()
+    n = preprocess_brats19.main(["--input_dir", src, "--output_dir", os.path.join(out, "data"),
+                                 "--format", "npz"])
+    _check(n == len(cases), f"preprocess BraTS: {n} cases")
+    with open(os.path.join(out, "train.txt"), "w") as f:
+        f.write("\n".join(cases) + "\n")
+    ds = BraTS2019(out, split="train")
+    for i in range(len(cases)):
+        s = ds.get(i, np.random.default_rng(0))
+        _check(s["image"].shape == BRATS_TARGET_SHAPE[::-1] and 0 <= s["image"].min()
+               and s["image"].max() <= 1 and set(np.unique(s["label"])) == {0, 1},
+               f"preprocess BraTS case {i}: {s['image'].shape}")
+    brats_s = time.perf_counter() - t0
+
+    src, out = os.path.join(tmp, "isles_nifti"), os.path.join(tmp, "isles_pre")
+    names = [f"sub-strokecase{i:04d}" for i in range(1, ISLES_RAW_CASES + 1)]
+    grid = np.ogrid[tuple(slice(0, s) for s in ISLES_RAW)]
+    for i, case in enumerate(names):
+        dwi = os.path.join(src, case, "ses-0001", "dwi")
+        msk = os.path.join(src, "derivatives", case, "ses-0001")
+        os.makedirs(dwi)
+        os.makedirs(msk)
+        lesion = sum(((g - c) / r) ** 2 for g, c, r in
+                     zip(grid, (50 + 3 * i, 60, 36), (12, 10, 8))) <= 1.0
+        nifti.save(os.path.join(dwi, f"{case}_ses-0001_dwi.nii.gz"),
+                   (rng.uniform(0, 300, ISLES_RAW) + 500 * lesion).astype(np.float32))
+        nifti.save(os.path.join(msk, f"{case}_ses-0001_msk.nii.gz"), lesion.astype(np.uint8))
+    t0 = time.perf_counter()
+    n = preprocess_isles22.main(["--input_dir", src, "--output_dir", out, "--format", "npz"])
+    _check(n == ISLES_RAW_CASES, f"preprocess ISLES: {n} cases")
+    train = open(os.path.join(out, "train.list")).read().split()
+    val = open(os.path.join(out, "val.list")).read().split()
+    _check(sorted(train + val) == names and len(train) == int(0.8 * ISLES_RAW_CASES),
+           f"preprocess ISLES split {train} / {val}")
+    for split, want in (("train", train), ("val", val)):
+        ds = ISLESDataset(out, split=split)
+        _check(len(ds) == len(want) and not ds.missing, f"ISLES {split}: {ds.paths}")
+        for i in range(len(ds)):
+            s = ds.get(i, np.random.default_rng(0))
+            _check(s["image"].shape == ISLES_TARGET_SHAPE and s["label"].sum() > 0,
+                   f"preprocess ISLES {split} case {i}")
+    isles_s = time.perf_counter() - t0
+    print(f"preprocess: BraTS {len(cases)} cases of {BRATS_RAW} -> {BRATS_TARGET_SHAPE} in "
+          f"{brats_s:.3f} s; ISLES {ISLES_RAW_CASES} cases of {ISLES_RAW} -> "
+          f"{ISLES_TARGET_SHAPE} in {isles_s:.3f} s, split {len(train)} / {len(val)}; "
+          f"read back as .npz by BraTS2019 and ISLESDataset")
 
 
 def main() -> int:
@@ -1790,6 +2236,15 @@ def main() -> int:
         phase_step_vs_cpu(torch, device, "pancreas_bf16")
         phase_step_vs_cpu(torch, device, "vnet_bf16")
         _phase("step_vs_cpu_bf16", t0)
+        t0 = time.perf_counter()
+        phase_group_eval(torch, device)
+        _phase("group_eval", t0)
+        t0 = time.perf_counter()
+        phase_dp_train(torch, device, tmp, train["root"])
+        _phase("dp_train", t0)
+        t0 = time.perf_counter()
+        phase_preprocess(torch, tmp)
+        _phase("preprocess", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"

@@ -6,7 +6,8 @@ the Dice/Jaccard/HD95/ASD table, through test_pancreas.run_test.
 Counterpart of dycon_paper_replication_tpu/cli/test_brats19.py. As the
 reference's offline test, it reads the volumes in their stored view
 (`--axial 0`, the default); `--axial 1` evaluates in the axial view that
-training and validation use. Run as
+training and validation use. `--group` and `--data_parallel` are
+test_pancreas's (the auto group of the sliding-window test CLIs). Run as
     python -m dycon_paper_replication_tpu_torch.cli.test_brats19 --root_path DATA ...
 """
 

@@ -13,11 +13,11 @@ sliding-window validation over val.txt in axial view), the same flags
 from __future__ import annotations
 
 from ..config import config_from_args
-from ..train.trainer import Trainer
+from ..train.trainer import train
 
 
 def main(argv=None) -> float:
-    return Trainer(config_from_args("brats19", argv)).run()
+    return train(config_from_args("brats19", argv))
 
 
 if __name__ == "__main__":

@@ -13,11 +13,11 @@ port implements) plus --device (default cuda):
 from __future__ import annotations
 
 from ..config import config_from_args
-from ..train.trainer import Trainer
+from ..train.trainer import train
 
 
 def main(argv=None) -> float:
-    return Trainer(config_from_args("isles22", argv)).run()
+    return train(config_from_args("isles22", argv))
 
 
 if __name__ == "__main__":

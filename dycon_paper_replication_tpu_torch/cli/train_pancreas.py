@@ -10,11 +10,11 @@ same flags (those the port implements) plus --device (default cuda):
 from __future__ import annotations
 
 from ..config import config_from_args
-from ..train.trainer import Trainer
+from ..train.trainer import train
 
 
 def main(argv=None) -> float:
-    return Trainer(config_from_args("pancreas", argv)).run()
+    return train(config_from_args("pancreas", argv))
 
 
 if __name__ == "__main__":

@@ -23,10 +23,9 @@ checkpoint names follow the model (VNET_..., vnet_best_model.pt).
 what the port's trainer implements, plus `--device`, for the three datasets
 ("pancreas", "brats19", "isles22"). Refused by argparse rather than accepted
 and ignored:
-  * the flags of features not ported: --remat,
-    --wire_dtype, and data parallelism (--data_parallel, and the
-    reference's --gpu_ids / --use_ddp: ROADMAP Queue A item 7); the device
-    is --device, so --gpu_id is refused too;
+  * --remat and --wire_dtype (dropped above), and the reference's
+    --gpu_ids / --use_ddp, which do nothing in the JAX package either; the
+    device is --device, so --gpu_id is refused too;
   * --fetch_ahead, the JAX trainer's deferred scalar fetch. It hides the
     round trip of the TPU's host link behind the next step; on the card the
     device is idle for 0.025 (ISLES), 0.029 (BraTS) and 0.033 (Pancreas) of
@@ -34,6 +33,11 @@ and ignored:
   * --step_diagnostics, which picks the JAX step's light or full program:
     the port's one eager step returns its diagnostic outputs every time
     (train/step.py).
+`--data_parallel N` runs N ranks, one process each (parallel/mesh.py,
+train/trainer.py:train): N > 1 applies the JAX trainer's multi-device rules
+(batch sizes rounded down to multiples of N, the learning rate times N);
+0, the default, is every visible device (1 on the CPU: one process)
+clamped to divide the batch and its labeled part.
 `--deterministic 0` draws the run's seed from the OS and turns on
 cudnn.benchmark (train/trainer.py; 1, the default, keeps the seed and
 turns it off); `--host_rss_exit_gb` is the host-RSS watchdog's bar (0
@@ -246,6 +250,9 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--fecl_chunk", type=_non_negative, default=d.fecl_chunk,
                    help="FeCL row tile; 0 = dense")
     p.add_argument("--fecl_impl", type=str, default=d.fecl_impl, choices=["fused", "chunked"])
+    p.add_argument("--data_parallel", type=_non_negative, default=d.data_parallel,
+                   help="ranks, one process each; 0 = every visible device, clamped to "
+                        "divide the batch")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
     return p
 

@@ -28,6 +28,51 @@ class _WorkerError:
         self.exc = exc
 
 
+def background(items: Iterator, depth: int, name: str) -> Iterator:
+    """The items of `items`, produced on one thread at most `depth` ahead of
+    the consumer (the batch loader's prefetch, the evaluation engines'
+    dispatch). The thread's exception is raised in the consumer as
+    RuntimeError(f"{name} thread failed"); a consumer that leaves early
+    stops the thread at its next item."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        # re-checks `stop`: a consumer that leaves early must not leave
+        # this thread blocked in q.put
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in items:
+                if not put(item):
+                    return
+            put(done)
+        except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
+            put(_WorkerError(exc))
+
+    t = threading.Thread(target=worker, name=name, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, _WorkerError):
+                raise RuntimeError(f"{name} thread failed") from item.exc
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=10)
+
+
 class BatchLoader:
     """Batches of `dataset.get(idx, rng)` samples over the index lists of
     `sampler` (re-iterated each epoch)."""
@@ -52,50 +97,18 @@ class BatchLoader:
         """(epoch index, batch) over `n_epochs` epochs (None: no end) from one
         producer thread, so the queue does not drain at epoch boundaries
         (a Pancreas epoch is only labelnum / labeled_bs batches)."""
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
 
-        def put(item) -> bool:
-            # re-checks `stop`: a consumer that leaves early must not leave
-            # this thread blocked in q.put
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
+        def produce():
+            produced = 0
+            while n_epochs is None or produced < n_epochs:
+                epoch_id = self._epoch
+                self._epoch += 1
+                produced += 1
+                for b, indices in enumerate(iter(self.sampler)):
+                    rng = np.random.default_rng((self.seed, epoch_id, b))
+                    yield epoch_id, self._assemble(indices, rng)
 
-        def worker():
-            try:
-                produced = 0
-                while n_epochs is None or produced < n_epochs:
-                    epoch_id = self._epoch
-                    self._epoch += 1
-                    produced += 1
-                    for b, indices in enumerate(iter(self.sampler)):
-                        if stop.is_set():
-                            return
-                        rng = np.random.default_rng((self.seed, epoch_id, b))
-                        if not put((epoch_id, self._assemble(indices, rng))):
-                            return
-                put(None)
-            except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
-                put(_WorkerError(exc))
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        try:
-            while True:
-                item = q.get()
-                if item is None:
-                    return
-                if isinstance(item, _WorkerError):
-                    raise RuntimeError("BatchLoader producer thread failed") from item.exc
-                yield item
-        finally:
-            stop.set()
-            t.join(timeout=10)
+        return background(produce(), self.prefetch, "BatchLoader producer")
 
     def __iter__(self) -> Iterator[dict]:
         """The batches of one epoch."""

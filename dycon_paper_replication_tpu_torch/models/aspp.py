@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from . import layers
 from ..ops.resize import global_avg_pool, trilinear_resize
 
@@ -78,7 +79,8 @@ class ASPP3D(nn.Module):
                               compute_dtype=branch.conv.compute_dtype)
             branches.append(layers.relu(branch.bn(h)))
         pooled = self.pool_conv(global_avg_pool(x))
-        if x.shape[0] > 1:
+        shard = mesh.active()  # a data-parallel step: the global batch decides
+        if (x.shape[0] if shard is None else shard.global_batch) > 1:
             pooled = self.pool_bn(pooled)
         pooled = trilinear_resize(layers.relu(pooled), tuple(branches[-1].shape[1:4]),
                                   align_corners=True)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.folded_conv_cuda import cast_operands, library_conv
+from ..parallel import mesh
 
 
 class Conv3d(nn.Module):
@@ -138,12 +139,20 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     batch mean and the biased batch variance (two-pass); the running stats
     move by `momentum` towards the batch mean and the UNBIASED variance
     (n / (n - 1)), the torch convention. Returns (y, new_mean, new_var),
-    the new stats detached."""
+    the new stats detached. Inside a data-parallel step (parallel.sharded)
+    the statistics are those of the global batch: both passes' sums go
+    through the differentiable cross-rank sum, over the global count."""
     xf = x.to(torch.float32)
     dims = tuple(range(x.dim() - 1))
-    b_mean = xf.mean(dim=dims)
-    b_var = (xf - b_mean).square().mean(dim=dims)
     n = x.numel() // x.shape[-1]
+    shard = mesh.active()
+    if shard is None:
+        b_mean = xf.mean(dim=dims)
+        b_var = (xf - b_mean).square().mean(dim=dims)
+    else:
+        n *= shard.world
+        b_mean = shard.all_sum(xf.sum(dim=dims)) / n
+        b_var = shard.all_sum((xf - b_mean).square().sum(dim=dims)) / n
     unbiased = b_var.detach() * (n / max(n - 1, 1))
     new_mean = (1 - momentum) * mean + momentum * b_mean.detach()
     new_var = (1 - momentum) * var + momentum * unbiased
@@ -160,9 +169,15 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """Inverted dropout (scale by 1/keep); the identity unless training with
-    a generator, as the JAX layer is without a key."""
+    a generator, as the JAX layer is without a key. Inside a data-parallel
+    step the mask is drawn for the global batch and this rank's rows kept."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shard = mesh.active()
+    if shard is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        mask = shard.rows_of(torch.rand((shard.global_batch,) + tuple(x.shape[1:]),
+                                        generator=generator, device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

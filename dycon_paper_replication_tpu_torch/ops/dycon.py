@@ -49,14 +49,18 @@ def uncl_loss(s_logits: torch.Tensor, t_logits: torch.Tensor, beta: float) -> to
 def fecl_loss(feat: torch.Tensor, mask: torch.Tensor, teacher_feat: torch.Tensor | None = None,
               gambling_uncertainty: torch.Tensor | None = None, *, temperature: float = 0.6,
               gamma: float = 2.0, use_focal: bool = True, pos_thresh: float = 1.5,
-              neg_thresh: float = 0.5, lambda_cross: float = 1.0) -> torch.Tensor:
+              neg_thresh: float = 0.5, lambda_cross: float = 1.0,
+              shard=None) -> torch.Tensor:
     """Dense FeCL over (B, N, N) similarity matrices.
 
     feat: (B, N, D) L2-normalised student embeddings; mask: (B, N) class id
     per location; teacher_feat: optional (B, N, D) teacher embeddings (the
     caller detaches them); gambling_uncertainty: optional (B, N) weight of
     the positive term. Returns the student InfoNCE (focal-weighted when
-    `use_focal`) + lambda_cross * the teacher hard-negative penalty."""
+    `use_focal`) + lambda_cross * the teacher hard-negative penalty. With
+    `shard` (a data-parallel step, parallel.Shard) it returns this rank's
+    term of the global value: the student mean over the global batch, the
+    cross term's sum over the global count of hard pairs."""
     n = feat.shape[1]
     dtype = feat.dtype
     same = (mask[:, :, None] == mask[:, None, :]).to(dtype)
@@ -92,6 +96,8 @@ def fecl_loss(feat: torch.Tensor, mask: torch.Tensor, teacher_feat: torch.Tensor
         zero = torch.zeros((), dtype=dtype, device=feat.device)
         per_patch = torch.where(has_pos, loss_matrix.sum(dim=-1) / pos_count.clamp_min(1.0), zero)
         loss_student = (per_patch * gambling_uncertainty).mean()
+    if shard is not None:
+        loss_student = loss_student * (feat.shape[0] / shard.global_batch)
 
     if teacher_feat is None:
         return loss_student
@@ -101,7 +107,10 @@ def fecl_loss(feat: torch.Tensor, mask: torch.Tensor, teacher_feat: torch.Tensor
     # torch.maximum, not clamp_min: at a tie it splits the gradient as JAX does
     gap = torch.maximum(1.0 - cross_sim, torch.zeros((), dtype=dtype, device=feat.device))
     cross_term = -torch.log(gap + _EPS_LOG) * cross_hard
-    loss_cross = cross_term.sum() / (cross_hard.sum() + _EPS_LOG)
+    count = cross_hard.sum()
+    if shard is not None:
+        count = shard.all_sum_(count.detach().clone())
+    loss_cross = cross_term.sum() / (count + _EPS_LOG)
     return loss_student + lambda_cross * loss_cross
 
 
@@ -110,8 +119,10 @@ def fecl_loss_chunked(feat: torch.Tensor, mask: torch.Tensor,
                       gambling_uncertainty: torch.Tensor | None = None, *,
                       temperature: float = 0.6, gamma: float = 2.0, use_focal: bool = True,
                       pos_thresh: float = 1.5, neg_thresh: float = 0.5,
-                      lambda_cross: float = 1.0, row_chunk: int = 512) -> torch.Tensor:
-    """`fecl_loss` over row tiles of `row_chunk` (JAX `fecl_loss_chunked`).
+                      lambda_cross: float = 1.0, row_chunk: int = 512,
+                      shard=None) -> torch.Tensor:
+    """`fecl_loss` over row tiles of `row_chunk` (JAX `fecl_loss_chunked`);
+    `shard` as in fecl_loss.
 
     The column max is a first pass over the tiles, without gradient; then
     each tile's student and cross terms are computed under
@@ -184,9 +195,11 @@ def fecl_loss_chunked(feat: torch.Tensor, mask: torch.Tensor,
         s, c, h = checkpoint(tile_terms, feat[:, k:k + row_chunk], feat, teacher_feat, g_t, k,
                              use_reentrant=False)
         student, cross, count = student + s, cross + c, count + h
-    loss_student = student / (b * n_true)
+    loss_student = student / ((b if shard is None else shard.global_batch) * n_true)
     if teacher_feat is None:
         return loss_student
+    if shard is not None:
+        count = shard.all_sum_(count.detach().clone())
     return loss_student + lambda_cross * cross / (count + _EPS_LOG)
 
 

@@ -344,8 +344,9 @@ class FeclFusedFn(torch.autograd.Function):
     in the backward."""
 
     @staticmethod
-    def forward(ctx, feat, mask, tfeat, gamb, o: FeclOptions):
+    def forward(ctx, feat, mask, tfeat, gamb, o: FeclOptions, shard=None):
         b, n, _ = feat.shape
+        b = b if shard is None else shard.global_batch  # the mean's batch
         feat = feat.contiguous()
         mask = mask.to(feat.dtype).contiguous()
         tfeat = None if tfeat is None else tfeat.contiguous()
@@ -359,9 +360,12 @@ class FeclFusedFn(torch.autograd.Function):
             row_mean = row_unf * w
         loss = row_mean.sum() / (b * n)
         cnt_total = c_cnt.sum()
+        if shard is not None:
+            cnt_total = shard.all_sum_(cnt_total)
         if tfeat is not None:
             loss = loss + o.lambda_cross * c_sum.sum() / (cnt_total + EPS)
         ctx.options = o
+        ctx.batch = b
         ctx.has_teacher = tfeat is not None
         ctx.save_for_backward(feat, mask, tfeat, gamb, col_max, s_all, rho, row_unf, w,
                               cnt_total)
@@ -371,7 +375,7 @@ class FeclFusedFn(torch.autograd.Function):
     def backward(ctx, gbar):
         feat, mask, tfeat, gamb, col_max, s_all, rho, row_unf, w, cnt_total = ctx.saved_tensors
         o = ctx.options
-        b, n, _ = feat.shape
+        b, n = ctx.batch, feat.shape[1]
         a_all = (gbar / (b * n)) * w
         if gamb is not None:
             a_all = a_all * gamb
@@ -379,7 +383,7 @@ class FeclFusedFn(torch.autograd.Function):
         dfeat = fecl_bwd(feat, mask, tfeat, col_max, s_all, rho, a_all.contiguous(), g_cross, o)
         dgamb = (gbar / (b * n)) * row_unf * w if gamb is not None else None
         dtfeat = torch.zeros_like(tfeat) if ctx.needs_input_grad[2] else None
-        return dfeat, None, dtfeat, dgamb, None
+        return dfeat, None, dtfeat, dgamb, None, None
 
 
 def fecl_loss_fused(feat: torch.Tensor, mask: torch.Tensor,
@@ -387,13 +391,16 @@ def fecl_loss_fused(feat: torch.Tensor, mask: torch.Tensor,
                     gambling_uncertainty: torch.Tensor | None = None, *,
                     temperature: float = 0.6, gamma: float = 2.0, use_focal: bool = True,
                     pos_thresh: float = 1.5, neg_thresh: float = 0.5,
-                    lambda_cross: float = 1.0, row_chunk: int = 512) -> torch.Tensor:
+                    lambda_cross: float = 1.0, row_chunk: int = 512,
+                    shard=None) -> torch.Tensor:
     """FeCL's value with the analytic backward; the value and the
     feat-gradient of `ops.dycon.fecl_loss` / `fecl_loss_chunked`, the
     teacher's cotangent zero. feat, teacher_feat (B, N, D) L2-normalised;
     mask (B, N) binary; gambling_uncertainty (B, N) or None. `row_chunk` is
-    the twin's row tile (any N: the rows are padded), which K2 ignores."""
+    the twin's row tile (any N: the rows are padded), which K2 ignores.
+    With `shard` (a data-parallel step) this rank's term of the global
+    value, as ops.dycon.fecl_loss gives it."""
     o = FeclOptions(float(temperature), float(gamma),
                     bool(use_focal) and gambling_uncertainty is None,
                     float(pos_thresh), float(neg_thresh), float(lambda_cross), int(row_chunk))
-    return FeclFusedFn.apply(feat, mask, teacher_feat, gambling_uncertainty, o)
+    return FeclFusedFn.apply(feat, mask, teacher_feat, gambling_uncertainty, o, shard)

@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from . import resize
 from .folded_conv_cuda import FoldedConv3Fn, cast_operands
 
@@ -276,21 +277,27 @@ def batch_norm_folded(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     passes and zero them on output, so the next folded conv reads zeros
     there. Returns (y, new_mean, new_var): in train mode the running stats
     moved by `momentum` towards the batch mean and the unbiased variance
-    (detached), in eval mode `mean` and `var` themselves."""
+    (detached), in eval mode `mean` and `var` themselves. Inside a
+    data-parallel step (parallel.sharded) both passes' sums are cross-rank
+    sums over the global count, as in models/layers.batch_norm_train."""
     b, g1, g2, g3, l = x.shape
     c = l // _SUBS
     n = b * n_valid
+    shard = mesh.active()
+    reduce = (lambda t: t) if shard is None else shard.all_sum
+    if shard is not None:  # a data-parallel step: the global batch's statistics
+        n *= shard.world
     xf = x.to(torch.float32)
     if masks is not None:
         for m in masks:
             xf = xf * m
     if train:
-        b_mean = xf.sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1) / n
+        b_mean = reduce(xf.sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1)) / n
         cent = xf - b_mean.repeat_interleave(_SUBS)
         if masks is not None:
             for m in masks:
                 cent = cent * m
-        b_var = cent.square().sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1) / n
+        b_var = reduce(cent.square().sum(dim=(0, 1, 2, 3)).reshape(c, _SUBS).sum(-1)) / n
         unbiased = b_var.detach() * (n / max(n - 1, 1))
         new_mean = (1 - momentum) * mean + momentum * b_mean.detach()
         new_var = (1 - momentum) * var + momentum * unbiased

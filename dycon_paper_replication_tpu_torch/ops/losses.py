@@ -7,6 +7,8 @@ train step uses).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -17,24 +19,34 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return -logp.gather(-1, labels[..., None].long()).mean()
 
 
-def dice_loss(score: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5) -> torch.Tensor:
+def no_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The sums of one process: the identity."""
+    return t
+
+
+def dice_loss(score: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5,
+              reduce: Callable[[torch.Tensor], torch.Tensor] = no_reduce) -> torch.Tensor:
     """Soft binary Dice loss over the whole batch: `score` a foreground
-    probability map, `target` a same-shape binary mask."""
+    probability map, `target` a same-shape binary mask. `reduce` takes each
+    of the three sums over the global batch in a data-parallel step
+    (parallel.Shard.all_sum): the ratio of sums is not a mean over ranks."""
     target = target.to(score.dtype)
-    intersect = (score * target).sum()
-    y_sum = (target * target).sum()
-    z_sum = (score * score).sum()
+    intersect = reduce((score * target).sum())
+    y_sum = reduce((target * target).sum())
+    z_sum = reduce((score * score).sum())
     return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
 
 
 def dice_loss_nclass(probs: torch.Tensor, labels: torch.Tensor, num_classes: int,
-                     smooth: float = 1e-5) -> torch.Tensor:
-    """Mean over classes of the soft Dice loss against one-hot labels."""
+                     smooth: float = 1e-5,
+                     reduce: Callable[[torch.Tensor], torch.Tensor] = no_reduce) -> torch.Tensor:
+    """Mean over classes of the soft Dice loss against one-hot labels;
+    `reduce` as in dice_loss."""
     one_hot = F.one_hot(labels.long(), num_classes).to(probs.dtype)
     dims = tuple(range(probs.dim() - 1))
-    intersect = (probs * one_hot).sum(dim=dims)
-    z_sum = (probs * probs).sum(dim=dims)
-    y_sum = (one_hot * one_hot).sum(dim=dims)
+    intersect = reduce((probs * one_hot).sum(dim=dims))
+    z_sum = reduce((probs * probs).sum(dim=dims))
+    y_sum = reduce((one_hot * one_hot).sum(dim=dims))
     return (1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)).mean()
 
 

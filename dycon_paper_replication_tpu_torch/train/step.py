@@ -27,6 +27,21 @@ foreground `pred_fg` (s_probs[..., 1] > 0.5, uint8), its L2-normalised
 `embedding` (B, N, D) and the pooled FeCL mask `mask_con` (B, N). They are
 tensors the step computes anyway, so the JAX light/full pair, which saves
 compiling a second program, has no eager counterpart. Not ported: `remat`.
+
+Data parallelism (`shard`, a parallel.Shard): each rank holds its rows of
+the global batch (labeled_bs / N labeled ones first) and computes its term
+of the JAX step's GLOBAL loss, so that the terms sum to it: each mean over
+the global batch is the rank's sum over the global count (CE, UnCL, the
+consistency term, FeCL's student mean), the Dice ratio and the BatchNorm
+statistics take their sums across ranks through a differentiable all-reduce
+(whose backward all-reduces the cotangent), FeCL's cross term divides by
+the global count of hard pairs, and the teacher noise and dropout masks are
+drawn for the global batch and sliced per rank. The scalars are all-reduced
+(one collective), so every rank sees the global loss and skips a NaN/Inf
+step together; the gradients are all-reduced by SUM (the gradient of the
+summed terms, not a mean of per-rank gradients), and global-norm clipping
+acts on the reduced gradient. The EMA stays local, on identical replicas.
+The diagnostic outputs are the rank's own rows.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import torch
 
 from ..config import TrainConfig
 from ..ops import dycon, fecl_fused, losses
+from ..parallel import mesh
 from ..ops.resize import avg_pool_nonoverlap
 from .state import TrainState, ema_update, sgd_update
 
@@ -78,12 +94,26 @@ def ema_alpha(step: int, decay: float) -> float:
     return float(min(one - one / (np.float32(step) + one), np.float32(decay)))
 
 
-def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> Callable:
+def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
+                     shard: mesh.Shard | None = None) -> Callable:
     """train_step(state, batch, generator, scalars, noise=None) -> (the
     float32 vector of SCALAR_METRICS on the device, {"pred_fg",
     "embedding", "mask_con"}); `state` is updated in place. `lr_schedule`
-    maps the step count to the learning rate."""
-    lbs = cfg.labeled_bs
+    maps the step count to the learning rate. With `shard`, `batch` holds
+    this rank's rows and `noise` (if given) is the global batch's (module
+    doc); the returned scalars are the global step's."""
+    lbs = cfg.labeled_bs if shard is None else shard.labeled
+    # per-rank weights of the batch means (1 on one device) and the Dice
+    # sums' reduction
+    if shard is None:
+        w_lab = w_unl = w_all = w_dice = 1.0
+        reduce = losses.no_reduce
+    else:
+        w_lab = shard.labeled / shard.global_labeled
+        w_unl = shard.unlabeled / (shard.global_batch - shard.global_labeled)
+        w_all = shard.batch / shard.global_batch
+        w_dice = 1.0 / shard.world
+        reduce = shard.all_sum
 
     def loss_fn(student, image, label, t_logits, t_features, generator, scalars: StepScalars):
         _, s_logits, s_features = student(image, generator=generator)
@@ -92,9 +122,10 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
 
         loss_ce = losses.cross_entropy_loss(s_logits[:lbs], label[:lbs])
         if cfg.dice_loss_kind == "binary":
-            loss_dice = losses.dice_loss(s_probs[:lbs, ..., 1], label[:lbs] == 1)
+            loss_dice = losses.dice_loss(s_probs[:lbs, ..., 1], label[:lbs] == 1, reduce=reduce)
         else:
-            loss_dice = losses.dice_loss_nclass(s_probs[:lbs], label[:lbs], cfg.num_classes)
+            loss_dice = losses.dice_loss_nclass(s_probs[:lbs], label[:lbs], cfg.num_classes,
+                                                reduce=reduce)
 
         stud_emb = normalized_embeddings(s_features)
         kernel = mask_kernel(cfg, image.shape[1:4], s_features.shape[1:4])
@@ -103,6 +134,8 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         teacher_emb = normalized_embeddings(t_features) if cfg.use_teacher_loss else None
         fecl_kwargs = dict(temperature=cfg.temp, gamma=cfg.gamma, use_focal=bool(cfg.use_focal),
                            pos_thresh=scalars.pos_thresh, neg_thresh=scalars.neg_thresh)
+        if shard is not None:
+            fecl_kwargs["shard"] = shard
         if cfg.fecl_chunk > 0 and cfg.fecl_impl == "fused":
             # the teacher embeddings come from a no-grad forward and the mask
             # is binary, as the closed-form backward requires
@@ -123,6 +156,9 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         else:
             cons = losses.softmax_kl_loss(s_probs[lbs:], t_probs[lbs:])
 
+        if shard is not None:  # this rank's terms of the global means
+            loss_ce, loss_dice, u_loss, cons = (loss_ce * w_lab, loss_dice * w_dice,
+                                                u_loss * w_all, cons * w_unl)
         total = (cfg.l_weight * (loss_ce + loss_dice) + scalars.consistency_weight * cons
                  + cfg.u_weight * (f_loss + u_loss))
         return total, (loss_ce, loss_dice, f_loss, u_loss, cons), (s_probs, stud_emb, mask)
@@ -132,34 +168,22 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
         image = batch["image"].to(torch.float32)
         label = batch["label"].long()
         if noise is None:
-            noise = torch.randn(image.shape, generator=generator, device=image.device)
+            shape = image.shape if shard is None else (shard.global_batch,) + image.shape[1:]
+            noise = torch.randn(shape, generator=generator, device=image.device)
             noise = (0.1 * noise).clamp(-0.2, 0.2)
+        if shard is not None:
+            noise = shard.rows_of(noise)
         teacher = state.teacher.train(cfg.teacher_train_mode)
-        with torch.no_grad():
-            _, t_logits, t_features = teacher(
-                image + noise, generator=generator if cfg.teacher_train_mode else None)
-
         student = state.student.train()
         stats = {k: b.clone() for k, b in student.named_buffers()}
         student.zero_grad(set_to_none=True)
-        total, parts, (s_probs, stud_emb, mask) = loss_fn(student, image, label, t_logits,
-                                                          t_features, generator, scalars)
-        total.backward()
-
-        # NaN/Inf guard: drop the whole update (parameters, student stats,
-        # momentum, teacher EMA, step), as the reference's `continue`; the
-        # teacher's stats still advance, its forward has run.
-        bad = not bool(torch.isfinite(total.detach()))
-        if bad:
+        with mesh.sharded(shard):
             with torch.no_grad():
-                for k, b in student.named_buffers():
-                    b.copy_(stats[k])
-        else:
-            sgd_update(state, lr_schedule(state.step), cfg.momentum, cfg.weight_decay,
-                       cfg.grad_clip_norm)
-            ema_update(state.teacher, student, ema_alpha(state.step, cfg.ema_decay))
-            state.step += 1
-        student.zero_grad(set_to_none=True)
+                _, t_logits, t_features = teacher(
+                    image + noise, generator=generator if cfg.teacher_train_mode else None)
+            total, parts, (s_probs, stud_emb, mask) = loss_fn(student, image, label, t_logits,
+                                                              t_features, generator, scalars)
+        total.backward()
 
         with torch.no_grad():
             fg = s_probs[..., 1] > 0.5
@@ -167,9 +191,50 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float]) -> C
             lab_f = label.to(torch.float32)
             inter = (pred_fg * lab_f).sum(dim=(1, 2, 3))
             dice_b = 2.0 * inter / (pred_fg.sum(dim=(1, 2, 3)) + lab_f.sum(dim=(1, 2, 3)) + 1e-8)
-            vec = torch.stack([total.detach(), *(p.detach() for p in parts), dice_b.mean(),
-                               torch.tensor(float(bad), device=image.device)])
+            values = torch.stack([total.detach(), *(p.detach() for p in parts)])
+            if shard is None:
+                train_dice = dice_b.mean()
+            else:  # the global step's scalars, in one collective
+                summed = shard.all_sum_(torch.cat([values, dice_b.sum()[None]]))
+                values, train_dice = summed[:-1], summed[-1] / shard.global_batch
+                total = values[0]
+
+        # NaN/Inf guard: drop the whole update (parameters, student stats,
+        # momentum, teacher EMA, step), as the reference's `continue`; the
+        # teacher's stats still advance, its forward has run. In a
+        # data-parallel step the loss is the global one, so every rank
+        # decides alike.
+        bad = not bool(torch.isfinite(total.detach()))
+        if bad:
+            with torch.no_grad():
+                for k, b in student.named_buffers():
+                    b.copy_(stats[k])
+        else:
+            if shard is not None:
+                _all_sum_grads(student, shard)
+            sgd_update(state, lr_schedule(state.step), cfg.momentum, cfg.weight_decay,
+                       cfg.grad_clip_norm)
+            ema_update(state.teacher, student, ema_alpha(state.step, cfg.ema_decay))
+            state.step += 1
+        student.zero_grad(set_to_none=True)
+        vec = torch.cat([values, train_dice[None],
+                         torch.tensor([float(bad)], device=image.device)])
         return vec, {"pred_fg": fg.view(torch.uint8), "embedding": stud_emb.detach(),
                      "mask_con": mask}
 
     return train_step
+
+
+@torch.no_grad()
+def _all_sum_grads(student: torch.nn.Module, shard: mesh.Shard) -> None:
+    """Sum every parameter's gradient over the ranks, in one flat
+    all-reduce (a parameter without one counts as a zero gradient)."""
+    params = list(student.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = shard.all_sum_(torch.cat([p.grad.reshape(-1) for p in params]))
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()

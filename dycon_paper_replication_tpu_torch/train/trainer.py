@@ -35,8 +35,22 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
     logged, with cudnn.benchmark on and cudnn.deterministic off, as the
     reference's flag did (`deterministic=1` sets them the other way).
 A NaN/Inf step is skipped as the reference's `continue`: it advances
-neither the iteration count nor any cadence. Not ported (ROADMAP Queue A
-item 7): the multi-device rules.
+neither the iteration count nor any cadence.
+
+Data parallelism (`train`, the CLIs' entry: `--data_parallel N` spawns N
+ranks, a process under torchrun joins as one; parallel/mesh.py): every rank
+builds the same replicas from the seed (a `deterministic=0` seed is drawn
+by rank 0 and broadcast), reads the same global batches and keeps its rows,
+and runs the data-parallel step (train/step.py), which computes the global
+step. An explicit N > 1 first applies the JAX trainer's multi-device rules
+(`_apply_multi_device_rules`: batch_size and labeled_bs rounded down to
+multiples of N, the learning rate times N); with 0 the rank count is every
+visible device clamped to divide the batch, and the config is kept. Rank 0
+alone logs, writes config.json and the code snapshot, validates (in one
+process, with the auto volume group on CUDA), runs train-HD95 and the
+monitor (on the global batch's rows, gathered from the ranks on their
+iterations) and saves; every rank resumes from the same checkpoint, and a
+stop (time budget, host RSS on any rank) is agreed on by all ranks.
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import weights
+from .. import parallel, weights
 from ..config import TrainConfig, resolve_device
 from ..data import (
     BatchLoader,
@@ -68,6 +82,7 @@ from ..data.datasets import brats_case_paths
 from ..eval import (
     SlidingWindowInference,
     WholeVolumeInference,
+    auto_group,
     iter_volumes,
     var_all_case,
     var_all_case_wholevolume,
@@ -110,16 +125,43 @@ def _host_rss_gb() -> float:
         return 0.0
 
 
+class _Quiet:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def info(self, *args) -> None:
+        pass
+
+    scalar = scalars = close = info
+
+
 class Trainer:
-    def __init__(self, cfg: TrainConfig):
+    shard: parallel.Shard | None = None  # this rank's part of a data-parallel run
+    lead = True  # rank 0, or a run in one process
+
+    def __init__(self, cfg: TrainConfig, rank: int | None = None, world: int = 1):
+        """`rank` and `world`: this process's place in a data-parallel run
+        whose process group is up (parallel.launch or torchrun); None for a
+        run in one process."""
         if cfg.dataset not in DATASETS:
             raise ValueError(f"dataset {cfg.dataset!r} is not one of {DATASETS}")
         self.device = resolve_device(cfg.device)
         notes = []
+        if rank is not None and cfg.data_parallel > 1:
+            cfg, notes = self._apply_multi_device_rules(cfg, world)
+        self.shard = None if rank is None else parallel.Shard(rank, world, cfg.batch_size,
+                                                               cfg.labeled_bs)
+        self.lead = rank in (None, 0)
+        if self.shard is not None and (cfg.batch_size % world or cfg.labeled_bs % world):
+            raise ValueError(f"batch_size={cfg.batch_size} / labeled_bs={cfg.labeled_bs} do "
+                             f"not divide over {world} ranks")
         if not cfg.deterministic:
             # the reference's deterministic=0 turns on cudnn.benchmark and
             # gives up reproducibility; the run's seed comes from the OS
             seed = int.from_bytes(os.urandom(4), "little")
+            if self.shard is not None:  # rank 0's seed for every replica
+                shared = torch.tensor([seed], device=self.device)
+                torch.distributed.broadcast(shared, 0)
+                seed = int(shared.item())
             notes.append(f"deterministic=0: seed drawn from OS entropy -> {seed}; "
                          "cudnn.benchmark on")
             cfg = dataclasses.replace(cfg, seed=seed)
@@ -129,16 +171,18 @@ class Trainer:
         torch.backends.cudnn.deterministic = bool(cfg.deterministic)
         self.cfg = cfg
         self.snapshot_path = cfg.snapshot_path()
-        os.makedirs(self.snapshot_path, exist_ok=True)
-        self.log = ExperimentLogger(self.snapshot_path)
-        for note in notes:
-            self.log.info(note)
-        self.log.info(str(dataclasses.asdict(cfg)))
-        with open(os.path.join(self.snapshot_path, "config.json"), "w") as f:
-            json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
-        code = os.path.join(self.snapshot_path, "code")  # the reference copies its code per run
-        if not os.path.exists(code):
-            copy_package(code)
+        self.log = _Quiet()
+        if self.lead:
+            os.makedirs(self.snapshot_path, exist_ok=True)
+            self.log = ExperimentLogger(self.snapshot_path)
+            for note in notes:
+                self.log.info(note)
+            self.log.info(str(dataclasses.asdict(cfg)))
+            with open(os.path.join(self.snapshot_path, "config.json"), "w") as f:
+                json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
+            code = os.path.join(self.snapshot_path, "code")  # the reference copies its code
+            if not os.path.exists(code):
+                copy_package(code)
 
         net_cfg = model_config(cfg.model, in_chns=cfg.in_ch, class_num=cfg.num_classes,
                                scaler=cfg.feature_scaler, use_aspp=cfg.use_aspp,
@@ -158,12 +202,15 @@ class Trainer:
             checkpoint.restore_train_state(path, self.state)
             self.log.info("Resumed full train state from %s (step %d, best-so-far %.4f)",
                           path, self.state.step, self.best_performance)
+        if self.shard is not None:  # rank 0's replicas on every rank
+            parallel.replicate(self.state.student)
+            parallel.replicate(self.state.teacher)
 
         if cfg.lr_schedule == "poly":
             schedule = lambda step: ramps.poly_lr(cfg.base_lr, step, cfg.max_iterations)  # noqa: E731
         else:
             schedule = lambda step: cfg.base_lr  # noqa: E731
-        self.train_step = build_train_step(cfg, schedule)
+        self.train_step = build_train_step(cfg, schedule, self.shard)
         self.timer = StepTimer()
         self.hd95_every = max(cfg.val_every // 4, 1)
         self._build_data()
@@ -175,6 +222,33 @@ class Trainer:
             self.whole_volume = None
             self.sw = SlidingWindowInference(self.state.student, cfg.patch_size,
                                              cfg.val_stride_xy, cfg.val_stride_z)
+
+    @staticmethod
+    def _apply_multi_device_rules(cfg: TrainConfig, n_dev: int) -> tuple[TrainConfig, list[str]]:
+        """The reference's DataParallel adjustments, as the JAX trainer makes
+        them: batch_size and labeled_bs rounded DOWN to multiples of the
+        rank count and the learning rate scaled by it, with a note for each;
+        a batch rounded to zero is an error."""
+        notes: list[str] = []
+        if n_dev <= 1:
+            return cfg, notes
+        bs = (cfg.batch_size // n_dev) * n_dev
+        lbs = (cfg.labeled_bs // n_dev) * n_dev
+        if bs == 0 or lbs == 0:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} / labeled_bs={cfg.labeled_bs} "
+                f"round to zero over {n_dev} devices; shrink data_parallel "
+                "or grow the batch"
+            )
+        if bs != cfg.batch_size:
+            notes.append(f"Adjusted total batch size from {cfg.batch_size} to {bs} "
+                         f"to be divisible by {n_dev} devices")
+        if lbs != cfg.labeled_bs:
+            notes.append(f"Adjusted labeled batch size from {cfg.labeled_bs} to {lbs} "
+                         f"to be divisible by {n_dev} devices")
+        lr = cfg.base_lr * n_dev
+        notes.append(f"Scaled learning rate to {lr} for {n_dev} devices")
+        return dataclasses.replace(cfg, batch_size=bs, labeled_bs=lbs, base_lr=lr), notes
 
     def _build_data(self) -> None:
         cfg = self.cfg
@@ -227,13 +301,19 @@ class Trainer:
         return iter_volumes([os.path.join(cfg.root_dir, "Pancreas_data", n) for n in names])
 
     def validate(self) -> float:
-        """Mean Dice of the student over the validation volumes."""
+        """Mean Dice of the student over the validation volumes, in volume
+        groups of the auto size (as the JAX trainer groups them on its
+        accelerator)."""
         student = self.state.student.eval()
         try:
             with torch.no_grad():
                 if self.whole_volume is not None:
-                    return var_all_case_wholevolume(self.whole_volume, self._val_volumes())
-                return var_all_case(self.sw, self._val_volumes())
+                    return var_all_case_wholevolume(
+                        self.whole_volume, self._val_volumes(),
+                        group=auto_group(self.device, "whole_volume", "validation"))
+                return var_all_case(self.sw, self._val_volumes(),
+                                    group=auto_group(self.device, "sliding_window",
+                                                     "validation"))
         finally:
             student.train()
 
@@ -246,8 +326,15 @@ class Trainer:
 
     def _diagnostics(self, diag: dict, label: np.ndarray, iter_num: int, pool) -> None:
         """The similarity monitor, and train-HD95 handed to `pool`, on
-        their iterations."""
+        their iterations; in a data-parallel run over the global batch,
+        gathered from every rank to rank 0."""
         cfg = self.cfg
+        if self.shard is not None:
+            keys = ((["embedding", "mask_con"] if iter_num % MONITOR_EVERY == 0 else [])
+                    + (["pred_fg"] if self._hd95_due(iter_num) else []))
+            diag = {k: self.shard.gather_rows(diag[k]) for k in keys}
+            if not self.lead:
+                return
         if iter_num % MONITOR_EVERY == 0:
             monitor_similarity_distributions(
                 diag["embedding"], diag["mask_con"], iter_num,
@@ -266,8 +353,11 @@ class Trainer:
             self.log.scalar("train/HD95", float(np.mean(future.result())), iter_num)
 
     def _after_step(self, v: dict, scalars: StepScalars, iter_num: int) -> None:
-        """Logging, validation and the periodic save after applied step `iter_num`."""
+        """Logging, validation and the periodic save after applied step
+        `iter_num` (rank 0's work)."""
         cfg = self.cfg
+        if not self.lead:
+            return
         self.log.scalars({
             "info/loss": v["loss"], "info/f_loss": v["f_loss"], "info/u_loss": v["u_loss"],
             "info/loss_ce": v["loss_ce"], "info/loss_dice": v["loss_dice"],
@@ -297,15 +387,22 @@ class Trainer:
 
     def _stop_reason(self, iter_num: int, t_start: float) -> str | None:
         """Why the run stops cleanly after applied step `iter_num`, if it does:
-        the time budget, or the host-RSS watchdog every RSS_EVERY iterations."""
+        the time budget, or the host-RSS watchdog every RSS_EVERY iterations.
+        Ranks agree: one that stops stops them all."""
         cfg = self.cfg
+        reason = None
         if cfg.time_budget_s and time.monotonic() - t_start >= cfg.time_budget_s:
-            return f"Time budget {cfg.time_budget_s:.0f}s exceeded"
-        if cfg.host_rss_exit_gb and iter_num % RSS_EVERY == 0:
+            reason = f"Time budget {cfg.time_budget_s:.0f}s exceeded"
+        elif cfg.host_rss_exit_gb and iter_num % RSS_EVERY == 0:
             rss = _host_rss_gb()
             if rss >= cfg.host_rss_exit_gb:
-                return f"Host RSS {rss:.1f} GB >= host_rss_exit_gb {cfg.host_rss_exit_gb:.0f}"
-        return None
+                reason = f"Host RSS {rss:.1f} GB >= host_rss_exit_gb {cfg.host_rss_exit_gb:.0f}"
+        if self.shard is not None and (cfg.time_budget_s or iter_num % RSS_EVERY == 0):
+            flag = self.shard.all_sum_(torch.tensor([float(reason is not None)],
+                                                    device=self.device))
+            if flag.item() and reason is None:
+                reason = "Another rank stopped"
+        return reason
 
     def run(self) -> float:
         cfg = self.cfg
@@ -326,8 +423,9 @@ class Trainer:
                     last_epoch = epoch
                 scalars = StepScalars(beta, self._consistency_weight(iter_num), pos_th, neg_th)
                 t0 = self.timer.start()
+                local = parallel.shard_batch(self.shard, batch)
                 vec, diag = self.train_step(self.state, {k: torch.from_numpy(x).to(self.device)
-                                                         for k, x in batch.items()},
+                                                         for k, x in local.items()},
                                             generator, scalars)
                 v = dict(zip(SCALAR_METRICS, vec.tolist()))
                 self.timer.stop(start=t0)
@@ -344,8 +442,9 @@ class Trainer:
                     break
                 reason = self._stop_reason(iter_num, t_start)
                 if reason:
-                    self._save(checkpoint.iter_checkpoint_path(self.snapshot_path, iter_num),
-                               iter_num)
+                    if self.lead:
+                        self._save(checkpoint.iter_checkpoint_path(self.snapshot_path,
+                                                                   iter_num), iter_num)
                     self.log.info("%s at iteration %d — saved and stopping", reason, iter_num)
                     break
             self._log_hd95(wait=True)
@@ -354,3 +453,37 @@ class Trainer:
             pool.shutdown(wait=True, cancel_futures=True)
             self.log.close()
         return self.best_performance
+
+
+def _rank_main(rank: int, world: int, device, cfg: TrainConfig) -> float:
+    """One rank of a data-parallel run (parallel.launch's worker)."""
+    return Trainer(dataclasses.replace(cfg, device=str(device)), rank, world).run()
+
+
+def train(cfg: TrainConfig, **launch_kwargs) -> float:
+    """The train CLIs' entry: one process with `data_parallel` 0 on one
+    device; a process started by torchrun joins its run as one rank;
+    otherwise `data_parallel` N > 0 (or 0 on several visible devices)
+    spawns the ranks (parallel.launch; `launch_kwargs` reach it: `devices`,
+    `backend`, `threads`, `timeout`). Returns the best validation Dice."""
+    env = parallel.from_env()
+    if env is not None:
+        rank, world, local = env
+        device = torch.device(cfg.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", local)
+            torch.cuda.set_device(device)
+        parallel.distributed_init(rank, world, "env://", device=device)
+        try:
+            return _rank_main(rank, world, device, cfg)
+        finally:
+            torch.distributed.destroy_process_group()
+    if launch_kwargs.get("devices"):
+        world = len(launch_kwargs["devices"])
+    elif cfg.data_parallel > 0:
+        world = parallel.make_mesh(cfg.data_parallel, cfg.device)
+    else:
+        world = parallel.make_mesh(0, cfg.device, cfg.batch_size, cfg.labeled_bs)
+        if world == 1:
+            return Trainer(cfg).run()
+    return parallel.launch(_rank_main, world, device=cfg.device, args=(cfg,), **launch_kwargs)

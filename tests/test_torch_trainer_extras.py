@@ -17,9 +17,9 @@
     embedding within rtol 1e-4, atol 1e-5 (that file's tolerance for values
     computed by a forward), pred_fg exact wherever the student's
     foreground probability is more than 1e-6 from 0.5;
-  * the trainer: its flags (brats19, deterministic 0/1, host_rss_exit_gb;
-    step_diagnostics, fetch_ahead, gpu_ids, use_ddp and data_parallel
-    refused); train-HD95 scored on its worker thread while the loop goes
+  * the trainer: its flags (brats19, deterministic 0/1, host_rss_exit_gb,
+    data_parallel; step_diagnostics, fetch_ahead, gpu_ids, use_ddp and a
+    negative data_parallel refused); train-HD95 scored on its worker thread while the loop goes
     on, each score logged at its own iteration and equal to the score of
     that step's mask; a NaN step advances neither the iteration nor the
     cadence; deterministic=0 draws and logs a seed and turns
@@ -226,9 +226,10 @@ def test_trainer_flags():
     assert (default.deterministic, default.host_rss_exit_gb) == (1, 100.0)
     for bad in (["--deterministic", "2"], ["--step_diagnostics", "always"],
                 ["--fetch_ahead", "0"], ["--gpu_ids", "0,1"], ["--use_ddp", "1"],
-                ["--data_parallel", "1"]):
+                ["--data_parallel", "-1"]):
         with pytest.raises(SystemExit):
             tconfig.config_from_args("brats19", bad)
+    assert tconfig.config_from_args("brats19", ["--data_parallel", "1"]).data_parallel == 1
 
 
 def test_train_hd95_runs_beside_the_loop(tmp_path, monkeypatch):
