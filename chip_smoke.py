@@ -10,7 +10,8 @@ with sliding-window evaluation, and the VNet's (`--model vnet`) Pancreas
 training and evaluation and ASPP's (`--use_aspp 1`) training, bf16
 compute (`--compute_dtype bfloat16`) of both families, each through its
 CLI, and then volume groups with pipelined evaluation, data-parallel
-training and the preprocess CLIs.
+training, the preprocess CLIs and the JAX package's trained Pancreas
+checkpoint's test.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -205,13 +206,24 @@ Phases, each timed on its own line:
      (112, 112, 73), DWI and mask), both preprocess CLIs with --format npz,
      the cases read back through BraTS2019 and ISLESDataset: the target
      shapes (192, 192, 64) and (112, 112, 64), binary labels, the 4 / 1 split;
- 36. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 36. trained_eval: the JAX package's trained Pancreas checkpoint
+     (trained/pancreas_unet3d_r05_best.pt, converted by
+     scripts/convert_jax_checkpoint.py) through test_pancreas
+     --max_iterations 20000 on the first 4 of the 20 canonical test
+     volumes (make_pancreas(n_train=62, n_test=20, shape=(128, 128, 112),
+     seed=1)), in float32 and bf16: 8 K1 (or K1-bf16) launches per forward
+     chunk and none of the other instance, each volume's Dice within 0.002
+     of its row of the TPU's log and the mean within 0.001 of the log's
+     mean over the same volumes, the float32 labels equal to the plain
+     engine's on >= 99.99 % of voxels (phase_trained_eval says each);
+ 37. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
      training, K1 forward, dx and K1-dW in VNet training; the bf16
      instances in bf16 eval, Pancreas and VNet bf16 training, with
-     bound_kind "bf16"), each with that path's launch count and the sums
+     bound_kind "bf16"; K1 and K1-bf16 in trained_eval), each with that
+     path's launch count and the sums
      over its shapes; then `{"ok": true, "device": {...}}` last.
 
 Any failed check raises and the process exits non-zero. It exits non-zero
@@ -852,7 +864,7 @@ def phase_eval(torch, nets, tmp):
     _check(len(origins) == 80 and not (origins % 2).any(), f"{len(origins)} origins")
 
     argv = ["--root_path", root, "--snapshot_root", runs, "--device", "cuda",
-            "--patch_batch", str(PATCH_BATCH)]
+            "--patch_batch", str(PATCH_BATCH), "--compute_dtype", "float32"]
     folded_conv3.launches = 0
     t_cli = time.perf_counter()
     avg = test_pancreas.main(argv)
@@ -1059,7 +1071,7 @@ def phase_isles_eval(torch, device, isles):
     # --group 1: one volume a forward, the batch-1 shapes the kernels line
     # times here (the CLI's auto group, 2 on cuda, runs in phase group_eval)
     argv = ["--root_dir", isles["root"], "--snapshot_root", isles["runs"], "--device", "cuda",
-            "--max_iterations", str(TRAIN_STEPS), "--group", "1"]
+            "--max_iterations", str(TRAIN_STEPS), "--group", "1", "--compute_dtype", "float32"]
     folded_conv3.launches = 0
     with mock.patch.object(evaluator.WholeVolumeInference, "map", tee):
         t0 = time.perf_counter()
@@ -1215,7 +1227,8 @@ def phase_brats_eval(torch, device, brats):
                 yield item
 
         argv = ["--root_path", brats["root"], "--snapshot_root", brats["runs"], "--device",
-                "cuda", "--max_iterations", str(TRAIN_STEPS), "--axial", str(axial)]
+                "cuda", "--max_iterations", str(TRAIN_STEPS), "--axial", str(axial),
+                "--compute_dtype", "float32"]
         folded_conv3.launches = 0
         with mock.patch.object(SlidingWindowInference, "map", tee):
             t0 = time.perf_counter()
@@ -1323,7 +1336,7 @@ def phase_vnet_eval(torch, device, vnet):
             yield item
 
     argv = ["--root_path", vnet["root"], "--snapshot_root", vnet["runs"], "--device", "cuda",
-            "--max_iterations", str(TRAIN_STEPS), "--model", "vnet"]
+            "--max_iterations", str(TRAIN_STEPS), "--model", "vnet", "--compute_dtype", "float32"]
     folded_conv3.launches = 0
     with mock.patch.object(SlidingWindowInference, "map", tee):
         t0 = time.perf_counter()
@@ -2050,6 +2063,196 @@ def phase_preprocess(torch, tmp):
           f"read back as .npz by BraTS2019 and ISLESDataset")
 
 
+# phase trained_eval (module doc, phase 36): the JAX package's trained
+# Pancreas checkpoint, converted by scripts/convert_jax_checkpoint.py, and
+# the canonical test tree of the run that trained it
+TRAINED_CKPT = os.path.join("trained", "pancreas_unet3d_r05_best.pt")
+CANONICAL_TREE = dict(n_train=62, n_test=20, shape=(128, 128, 112), seed=1)
+TRAINED_MAX_ITERATIONS = 20000
+TRAINED_VOLUMES = 4  # the first 4 of the 20 of test1.list (scripts/eval_trained.py runs 20)
+# the TPU's scores of the same checkpoint on the same 20 volumes (Dice, Jaccard,
+# HD95, ASD per row of test1.list): bench_results/r05_canonical20k_test_eval.log,
+# the JAX test CLI at its defaults (bf16 on the TPU, patch 96^3, stride 16/4)
+TPU_LOG = [
+    (0.99933, 0.99867, 0.0, 0.01098), (0.99948, 0.99897, 0.0, 0.00683),
+    (0.99957, 0.99915, 0.0, 0.00678), (0.99938, 0.99877, 0.0, 0.00774),
+    (0.99886, 0.99772, 0.0, 0.08383), (0.99927, 0.99855, 0.0, 0.00859),
+    (0.99955, 0.99909, 0.0, 0.00865), (0.99918, 0.99835, 0.0, 0.01177),
+    (0.99961, 0.99922, 0.0, 0.00727), (0.99954, 0.99909, 0.0, 0.00846),
+    (0.99935, 0.99871, 0.0, 0.01012), (0.99966, 0.99932, 0.0, 0.00528),
+    (0.99941, 0.99883, 0.0, 0.00877), (0.99959, 0.99918, 0.0, 0.00719),
+    (0.99940, 0.99880, 0.0, 0.01031), (0.99968, 0.99935, 0.0, 0.00622),
+    (0.99954, 0.99909, 0.0, 0.00763), (0.99957, 0.99914, 0.0, 0.00645),
+    (0.99963, 0.99925, 0.0, 0.00661), (0.99896, 0.99792, 0.0, 0.02906),
+]
+DICE_VOLUME_TOL, DICE_MEAN_TOL = 0.002, 0.001
+TRAINED_PLAIN_AGREE = 0.9999
+
+
+def phase_trained_eval(torch, device, tmp, n_volumes=TRAINED_VOLUMES, check=True):
+    """The trained checkpoint's 20-volume test (module doc, phase 36), cut to
+    the first `n_volumes`: `TRAINED_CKPT` copied to the best-model path
+    that `cli.test_pancreas --max_iterations 20000` reads (a missing file
+    fails the phase), the canonical test tree regenerated on the host by the
+    port's make_pancreas (62 + 20 volumes of (128, 128, 112) at seed 1, as
+    the run that trained it), and the test CLI on the first `n_volumes` of
+    test1.list with --compute_dtype float32 and then bfloat16 (folded,
+    patch 96^3, stride 16/4, patch batch 4: 45 patches, 12 chunks a volume).
+
+    Gates, stated before the phase first ran on the card:
+      * launches: each dtype's run launches its K1 instance 8 times per
+        forward chunk and the other instance never (so the float32 run no
+        bf16 kernel);
+      * Dice against the TPU log (TPU_LOG): in each dtype, each volume's
+        Dice within DICE_VOLUME_TOL = 0.002 of its row, and the mean over
+        the volumes run within DICE_MEAN_TOL = 0.001 of the log's mean over
+        the same volumes;
+      * folded against plain: the float32 CLI's labels (before the
+        largest-component step) equal the plain engine's (NDHWC, cuDNN,
+        TF32 off, the same weights) on at least 99.99 % of each volume's
+        voxels.
+    Printed, not gated: Jaccard, HD95 and ASD beside the log's; the share
+    of voxels whose label (after the largest-component step, as scored)
+    differs between bf16 and float32, and before it; the host seconds a
+    volume of the CLI's scoring (largest component and metrics); vols/s of
+    each CLI run. Returns those numbers and each dtype's K1 launches, and
+    with `check` False, before the gates (which `check_trained_eval` holds)."""
+    import shutil
+
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.cli import test_pancreas
+    from dycon_paper_replication_tpu_torch.config import make_config
+    from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
+    from dycon_paper_replication_tpu_torch.eval import (
+        SlidingWindowInference, compute_origins, evaluator, iter_volumes)
+    from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
+    from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import folded_conv3
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAINED_CKPT)
+    _check(os.path.isfile(ckpt), f"trained_eval: {ckpt} is missing")
+    runs = os.path.join(tmp, "trained_runs")
+    snapshot = make_config("pancreas", snapshot_root=runs,
+                           max_iterations=TRAINED_MAX_ITERATIONS).snapshot_path()
+    best = checkpoint.best_checkpoint_path(snapshot, "unet_3D")
+    os.makedirs(snapshot)
+    shutil.copyfile(ckpt, best)
+    root = os.path.join(tmp, "Pancreas_canonical")
+    t0 = time.perf_counter()
+    make_pancreas(root, **CANONICAL_TREE, suffix=".npz")
+    gen_s = time.perf_counter() - t0
+    with open(os.path.join(root, "test1.list")) as f:
+        names = [line.strip() for line in f if line.strip()][:n_volumes]
+    with open(os.path.join(root, "trained_eval.list"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    shape = CANONICAL_TREE["shape"]
+    chunks = math.ceil(len(compute_origins(shape, PATCH, STRIDE_XY, STRIDE_Z)) / PATCH_BATCH)
+    meta = torch.load(best, map_location="cpu", weights_only=True)["meta"]
+    print(f"trained_eval: {TRAINED_CKPT} (meta {meta}), {len(names)} of "
+          f"{CANONICAL_TREE['n_test']} test volumes of {shape}, {chunks} chunks each; tree "
+          f"made in {gen_s:.3f} s")
+
+    real_map = SlidingWindowInference.map
+    real_lcc = evaluator.metrics.largest_connected_component
+    real_case = evaluator.metrics.calculate_metric_percase
+    runs_out = {}
+    for dtype in ("float32", "bfloat16"):
+        raw, scored, cases, host_s = [], [], [], []
+
+        def tee(self, volumes, **kwargs):
+            for item in real_map(self, volumes, **kwargs):
+                raw.append(item[0])
+                yield item
+
+        def lcc(pred):
+            t = time.perf_counter()
+            out = real_lcc(pred)
+            host_s.append(time.perf_counter() - t)
+            scored.append(out)
+            return out
+
+        def case(pred, gt):
+            t = time.perf_counter()
+            out = real_case(pred, gt)
+            host_s[-1] += time.perf_counter() - t
+            cases.append(tuple(float(v) for v in out))
+            return out
+
+        argv = ["--root_path", root, "--snapshot_root", runs, "--device", "cuda",
+                "--max_iterations", str(TRAINED_MAX_ITERATIONS), "--list_name",
+                "trained_eval.list", "--compute_dtype", dtype]
+        folded_conv3.launches = 0
+        with mock.patch.object(SlidingWindowInference, "map", tee), \
+                mock.patch.object(evaluator.metrics, "largest_connected_component", lcc), \
+                mock.patch.object(evaluator.metrics, "calculate_metric_percase", case):
+            t0 = time.perf_counter()
+            avg = test_pancreas.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        launches = {str(k).removeprefix("torch."): v for k, v in folded_conv3.by_dtype.items()}
+        runs_out[dtype] = dict(raw=raw, scored=scored, cases=cases, host_s=host_s, cli_s=cli_s,
+                               avg=[float(v) for v in avg], launches=launches)
+        print(f"trained_eval {dtype}: K1 launches {launches}, cli wall {cli_s:.3f} s, "
+              f"{len(names) / cli_s:.4f} vols/s, host scoring {statistics.mean(host_s):.3f} s "
+              f"a volume; mean Dice, Jaccard, HD95, ASD {runs_out[dtype]['avg']}")
+
+    # the plain engine (NDHWC: cuDNN, TF32 off) on the same volumes and weights
+    net = UNet3D(UNet3DConfig(layout="NDHWC")).to(device).eval()
+    checkpoint.restore_checkpoint(best, net)
+    plain = SlidingWindowInference(net, PATCH, STRIDE_XY, STRIDE_Z, PATCH_BATCH)
+    volumes = iter_volumes([os.path.join(root, "Pancreas_data", n) for n in names])
+    f32, bf16 = runs_out["float32"], runs_out["bfloat16"]
+    rows, agree_plain = [], []
+    for i, (image, _) in enumerate(volumes):
+        agree_plain.append(float((plain(image)[0] == f32["raw"][i]).mean()))
+        row = dict(volume=names[i], log=list(TPU_LOG[i]), float32=list(f32["cases"][i]),
+                   bfloat16=list(bf16["cases"][i]), folded_vs_plain=agree_plain[-1],
+                   bf16_vs_f32_scored=float((bf16["scored"][i] != f32["scored"][i]).mean()),
+                   bf16_vs_f32_raw=float((bf16["raw"][i] != f32["raw"][i]).mean()),
+                   host_s={d: runs_out[d]["host_s"][i] for d in runs_out})
+        rows.append(row)
+        print(f"trained_eval {json.dumps(row)}")
+    want_mean = [float(np.mean([TPU_LOG[i][m] for i in range(len(names))])) for m in range(4)]
+    summary = dict(volumes=len(names), log_mean=want_mean,
+                   mean={d: runs_out[d]["avg"] for d in runs_out},
+                   vols_per_s={d: len(names) / runs_out[d]["cli_s"] for d in runs_out},
+                   host_s_per_volume={d: statistics.mean(runs_out[d]["host_s"])
+                                      for d in runs_out},
+                   bf16_vs_f32_scored=float(np.mean([r["bf16_vs_f32_scored"] for r in rows])),
+                   bf16_vs_f32_raw=float(np.mean([r["bf16_vs_f32_raw"] for r in rows])),
+                   folded_vs_plain_min=min(agree_plain),
+                   launches={d: runs_out[d]["launches"] for d in runs_out})
+    print(f"trained_eval summary {json.dumps(summary)}")
+    out = dict(summary, rows=rows, want_launches=8 * chunks * len(names),
+               cases={d: runs_out[d]["cases"] for d in runs_out},
+               k1_launches={d: runs_out[d]["launches"][d] for d in runs_out})
+    if check:
+        check_trained_eval(out)
+    return out
+
+
+def check_trained_eval(out):
+    """phase_trained_eval's gates (its docstring) on what it returned."""
+    n, want = out["volumes"], out["want_launches"]
+    for dtype, other in (("float32", "bfloat16"), ("bfloat16", "float32")):
+        cases = out["cases"][dtype]
+        _check(len(cases) == n, f"trained_eval {dtype}: {len(cases)} of {n} volumes scored")
+        _check(out["launches"][dtype] == {dtype: want, other: 0},
+               f"trained_eval {dtype}: K1 launches {out['launches'][dtype]}, want {want} {dtype}")
+        for i, case in enumerate(cases):
+            _check(abs(case[0] - TPU_LOG[i][0]) <= DICE_VOLUME_TOL,
+                   f"trained_eval {dtype} volume {i}: Dice {case[0]} against the log's "
+                   f"{TPU_LOG[i][0]}")
+        _check(abs(out["mean"][dtype][0] - out["log_mean"][0]) <= DICE_MEAN_TOL,
+               f"trained_eval {dtype}: mean Dice {out['mean'][dtype][0]} against the log's "
+               f"{out['log_mean'][0]}")
+    for row in out["rows"]:
+        _check(row["folded_vs_plain"] >= TRAINED_PLAIN_AGREE,
+               f"trained_eval {row['volume']}: folded float32 labels equal the plain engine's "
+               f"on {row['folded_vs_plain']} < {TRAINED_PLAIN_AGREE} of voxels")
+
+
 def main() -> int:
     import torch
 
@@ -2245,6 +2448,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_preprocess(torch, tmp)
         _phase("preprocess", t0)
+        t0 = time.perf_counter()
+        trained = phase_trained_eval(torch, device, tmp)
+        _phase("trained_eval", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -2296,6 +2502,13 @@ def main() -> int:
             ("folded_conv3_dw_vnet_bf16", "bf16_train_vnet", bf16_vnet["launches"]["k1_dw"],
              bf16_rows["vnet_dw"], dw_src, dw_replaces)):
         kernels.append(_kernel_entry(name, path, src, replaces, launches, rows, bound="bf16"))
+    # the trained checkpoint's evaluation runs K1 and K1-bf16 at the eval
+    # shapes (patch 96^3, batch PATCH_BATCH) that phases kernels and k1_bf16 time
+    kernels.append(_kernel_entry("folded_conv3_trained", "trained_eval", k1_src, K1_REPLACES,
+                                 trained["k1_launches"]["float32"], k1_rows, bound="tf32x3"))
+    kernels.append(_kernel_entry("folded_conv3_bf16_trained", "trained_eval_bf16", k1_src,
+                                 K1_REPLACES, trained["k1_launches"]["bfloat16"],
+                                 bf16_rows["eval"], bound="bf16"))
     for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
                            ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):
         kernels.append(dict(name=name, path="isles_train", route="cuda", source=K2_SOURCE,

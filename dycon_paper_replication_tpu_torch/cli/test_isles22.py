@@ -5,7 +5,8 @@ a test_results_labelnum<N>.txt file in the snapshot directory.
 
 Counterpart of dycon_paper_replication_tpu/cli/test_isles22.py, with the
 flags the port implements plus `--device` (default cuda); `--compute_dtype`
-takes bfloat16 (auto is float32). `--group N` stacks N volumes of one padded
+auto is bfloat16 on cuda and float32 on the CPU (test_pancreas.resolve_perf_flags
+says why). `--group N` stacks N volumes of one padded
 shape into one forward; 0, the default, is eval.AUTO_GROUP["whole_volume"]["test"]
 = 2 on cuda, the best of groups 1, 2 and 4 at the ISLES protocol on the card
 (scripts/measure_group_eval.py, NVIDIA H100 80GB HBM3, 700 W: 2.249 / 2.498
@@ -21,7 +22,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..config import COMPUTE_DTYPES, make_config, resolve_device
+from ..config import COMPUTE_DTYPES, LAYOUTS, make_config, resolve_device
 from ..data import ISLESDataset
 from ..eval import (AUTO_GROUP, WholeVolumeInference, auto_group, iter_volumes,
                     test_all_case_wholevolume)
@@ -49,8 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshot_root", type=str, default="./runs")
     p.add_argument("--compute_dtype", type=str, default="auto",
                    choices=["auto", *COMPUTE_DTYPES],
-                   help="auto = float32 (bfloat16 runs only when asked for)")
-    p.add_argument("--layout", type=str, default="auto", choices=["auto", "NDHWC", "folded"])
+                   help="auto = bfloat16 on cuda, float32 on cpu")
+    p.add_argument("--layout", type=str, default="auto", choices=LAYOUTS)
     p.add_argument("--patch_batch", type=int, default=0)  # accepted for symmetry
     p.add_argument("--data_parallel", type=int, default=0,
                    help="deal volume groups round-robin over N devices, one model replica "

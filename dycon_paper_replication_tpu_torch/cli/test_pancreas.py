@@ -23,7 +23,7 @@ import os
 
 import numpy as np
 
-from ..config import COMPUTE_DTYPES, make_config, resolve_device
+from ..config import COMPUTE_DTYPES, LAYOUTS, make_config, resolve_device, resolve_layout
 from ..eval import AUTO_GROUP, SlidingWindowInference, auto_group, iter_volumes, test_all_case
 from ..parallel import eval_devices
 from ..models import net_factory_3d
@@ -59,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--list_name", type=str, default="test1.list")
     p.add_argument("--compute_dtype", type=str, default="auto",
                    choices=["auto", *COMPUTE_DTYPES],
-                   help="auto = float32 (bfloat16 runs only when asked for)")
-    p.add_argument("--layout", type=str, default="auto", choices=["auto", "NDHWC", "folded"])
+                   help="auto = bfloat16 on cuda, float32 on cpu")
+    p.add_argument("--layout", type=str, default="auto", choices=LAYOUTS)
     p.add_argument("--patch_batch", type=int, default=0,
                    help="patches per forward; 0 = auto (4 on cuda, 2 on cpu)")
     p.add_argument("--data_parallel", type=int, default=0,
@@ -76,12 +76,21 @@ def build_parser() -> argparse.ArgumentParser:
 def resolve_perf_flags(args) -> tuple[str, str, int]:
     """(compute_dtype, layout, patch_batch) for the device: folded (unet_3D
     and vnet alike) and 4 patches per forward on cuda, the plain layout and
-    2 on the CPU. `--compute_dtype auto` is float32 on both (the JAX CLI's
-    auto is bfloat16 on a TPU only); bfloat16 runs when asked for."""
+    2 on the CPU. `--compute_dtype auto` is bfloat16 on cuda, as the JAX
+    CLI's auto is on its accelerator, and float32 on the CPU. The rule, set
+    before the measurement: bfloat16 if, over the 20 canonical test volumes
+    with the JAX package's trained Pancreas checkpoint, its labels agree
+    with float32's on at least 99.99 % of voxels and the mean Dice of the
+    two differs by at most 1e-4. Measured (scripts/eval_trained.py, NVIDIA
+    H100 80GB HBM3, 700 W): the labels differ on 1.36e-6 of voxels (0 to
+    2.7e-6 a volume), mean Dice 0.9994276 in bfloat16 against 0.9994264
+    (1.3e-6 apart), and the CLI runs at 1.180 against 1.042 vols/s, bound
+    by its host scoring (~0.8 s a volume)."""
     on_cuda = args.device == "cuda"
-    layout = args.layout if args.layout != "auto" else ("folded" if on_cuda else "NDHWC")
+    layout = resolve_layout(args.layout, args.device, args.model)
     patch_batch = args.patch_batch or (4 if on_cuda else 2)
-    dtype = "float32" if args.compute_dtype == "auto" else args.compute_dtype
+    auto = "bfloat16" if on_cuda else "float32"
+    dtype = auto if args.compute_dtype == "auto" else args.compute_dtype
     return dtype, layout, patch_batch
 
 

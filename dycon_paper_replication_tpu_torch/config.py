@@ -11,7 +11,12 @@ Fields dropped from the JAX config, by decision:
 Field added: `device` ("cuda" or "cpu"), the torch device of a run.
 `layout="auto"` resolves against the torch device: "folded" for unet_3D and
 vnet on CUDA, where the fold-2 conv is the hand-written kernel K1, and
-"NDHWC" elsewhere. `--compute_dtype` is float32 (the default) or bfloat16,
+"NDHWC" elsewhere. `--layout NCDHW` is accepted as an alias of "NDHWC" in
+every parser (resolve_layout): in the JAX package it keeps the W axis in the
+TPU's lane dimension and is "numerically identical to NDHWC"
+(dycon_paper_replication_tpu/config.py), and the port's NDHWC path already
+hands its convs to cuDNN through an NCDHW view (models/layers.py), so the
+two would be one path. `--compute_dtype` is float32 (the default) or bfloat16,
 the JAX flag: the model's convs compute in it, with float32 parameters,
 norm statistics, heads and losses (models/unet3d.py); checkpoints hold the
 float32 parameters either way, so the run directory does not encode it. `--model`
@@ -130,12 +135,8 @@ class TrainConfig:
     device: str = "cuda"  # cuda | cpu
 
     def resolved_layout(self, device: torch.device | str) -> str:
-        """The model layout for `device`: "auto" is "folded" for unet_3D and
-        vnet on CUDA (both have fold-2 engines) and "NDHWC" otherwise."""
-        if self.layout != "auto":
-            return self.layout
-        on_cuda = torch.device(device).type == "cuda"
-        return "folded" if on_cuda and self.model in ("unet_3D", "vnet") else "NDHWC"
+        """The model layout for `device` (resolve_layout)."""
+        return resolve_layout(self.layout, device, self.model)
 
     def torch_compute_dtype(self) -> torch.dtype:
         """`compute_dtype` as a torch dtype."""
@@ -163,6 +164,17 @@ class TrainConfig:
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+LAYOUTS = ("auto", "NDHWC", "NCDHW", "folded")  # the JAX flag's choices
+
+
+def resolve_layout(layout: str, device: torch.device | str, model: str = "unet_3D") -> str:
+    """The model layout of a `--layout` value on `device`: "auto" is
+    "folded" for unet_3D and vnet on CUDA (both have fold-2 engines) and
+    "NDHWC" otherwise; "NCDHW" is "NDHWC" (module doc)."""
+    if layout == "auto":
+        on_cuda = torch.device(device).type == "cuda"
+        return "folded" if on_cuda and model in ("unet_3D", "vnet") else "NDHWC"
+    return "NDHWC" if layout == "NCDHW" else layout
 
 DATASET_DEFAULTS: dict[str, dict[str, Any]] = {
     "pancreas": dict(
@@ -246,7 +258,7 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                    help='"" fresh, "auto" = latest ckpt of this run dir, or a path')
     p.add_argument("--host_rss_exit_gb", type=float, default=d.host_rss_exit_gb,
                    help="save resumably and stop when host RSS reaches this (GB); 0 = off")
-    p.add_argument("--layout", type=str, default=d.layout, choices=["auto", "NDHWC", "folded"])
+    p.add_argument("--layout", type=str, default=d.layout, choices=LAYOUTS)
     p.add_argument("--fecl_chunk", type=_non_negative, default=d.fecl_chunk,
                    help="FeCL row tile; 0 = dense")
     p.add_argument("--fecl_impl", type=str, default=d.fecl_impl, choices=["fused", "chunked"])

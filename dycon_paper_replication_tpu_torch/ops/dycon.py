@@ -18,8 +18,9 @@ defines training:
 "chunked"` path of the train step): the B x N x N matrices exist one tile
 at a time, and each tile's terms run under torch.utils.checkpoint, so the
 backward recomputes them instead of storing them. Its `cs > neg_thresh`
-test goes through the fused FeCL's `cross_side` hook when that is set
-(ops/fecl_fused.py; set only by train/device_check.py's kink sharing).
+test, and the dense FeCL's, goes through the fused FeCL's `cross_side`
+hook when that is set (ops/fecl_fused.py; set only by kink sharing:
+train/device_check.py and the JAX parity tests).
 """
 
 from __future__ import annotations
@@ -103,7 +104,10 @@ def fecl_loss(feat: torch.Tensor, mask: torch.Tensor, teacher_feat: torch.Tensor
         return loss_student
 
     cross_sim = torch.einsum("bnd,bmd->bnm", feat, teacher_feat)
-    cross_hard = ((diff > 0) & (cross_sim > neg_thresh)).to(dtype)
+    above = cross_sim > neg_thresh
+    if fecl_fused.cross_side is not None:
+        above = fecl_fused.cross_side(slice(0, n), cross_sim, neg_thresh, above)
+    cross_hard = ((diff > 0) & above).to(dtype)
     # torch.maximum, not clamp_min: at a tie it splits the gradient as JAX does
     gap = torch.maximum(1.0 - cross_sim, torch.zeros((), dtype=dtype, device=feat.device))
     cross_term = -torch.log(gap + _EPS_LOG) * cross_hard

@@ -49,9 +49,10 @@ forward and one per backward, whatever number of kernels each launches.
 
 A hook for the card-against-CPU step check (train/device_check.py):
 `cross_side`, when set, decides the `cs > neg_thresh` test for the pairs
-of a tile, in the twin and in ops/dycon.py's `fecl_loss_chunked` (it lets
-the CPU step take the card's side at pairs within a stated margin of the
-threshold). It is None outside that check.
+of a tile, in the twin and in ops/dycon.py's `fecl_loss_chunked` and
+`fecl_loss` (whose one tile is all rows): it lets the CPU step take the
+card's side, or a test JAX's, at pairs within a stated margin of the
+threshold. It is None outside those checks.
 """
 
 from __future__ import annotations
@@ -69,8 +70,8 @@ EPS = 1e-18
 # K2's feature width, the projection head's output (one template instance)
 K2_WIDTH = 256
 
-# set only by train/device_check.py: (row slice, cs tile (B, T, N), neg_t,
-# own side (cs > neg_t)) -> the side to use
+# set only by kink sharing (module doc): (row slice, cs tile (B, T, N),
+# neg_t, own side (cs > neg_t)) -> the side to use
 cross_side = None
 
 

@@ -62,7 +62,9 @@ threshold (fused or chunked) through ops/fecl_fused.py's `cross_side`
 hook; the card's cs there is recomputed on the CPU in float32 from the card
 step's embeddings, which agrees with K2's to ~1e-7. The check reports, per kind, how many values lay within delta
 ("near", without the exact zeros of masked lanes) and how many of them took
-a side that was not their own ("taken").
+a side that was not their own ("taken"). `KinkSides.given` also takes
+the sides of a step's foreground threshold p1 > 0.5 (the train Dice),
+shared through train/step.py:foreground; the JAX parity tests use it.
 
 Tolerances, tests/test_torch_train_step.py's (its module doc gives the
 reasons: float32 summation order in the norm backwards), for one step.
@@ -108,6 +110,7 @@ from .. import weights
 from ..config import TrainConfig, make_config
 from ..models import UNet3DConfig, VNetConfig, build_model, layers
 from ..ops import dycon, fecl_fused, resize
+from . import step as train_step
 from .state import TrainState, create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
 
@@ -336,20 +339,26 @@ class KinkSides:
         self._relu: list[torch.Tensor] = []
         self._pool: list[torch.Tensor] = []
         self._fecl: list[tuple] = []
+        self._fg: list[torch.Tensor] = []
         self._cross: dict = {}
         self.counts = dict(relu_near=0, relu_taken=0, pool_near=0, pool_taken=0, cross_near=0,
-                           cross_taken=0)
+                           cross_taken=0, fg_near=0, fg_taken=0)
 
     @classmethod
-    def given(cls, relu: list, pool: list, fecl: list) -> "KinkSides":
+    def given(cls, relu: list, pool: list, fecl: list, fg: list = ()) -> "KinkSides":
         """Sides recorded elsewhere, in `record()`'s order and form: per
         ReLU call a bool tensor (input > 0), per max pool the argmax over
         its blocks (-1 for a block whose two largest values are equal:
         record() writes it, sides from elsewhere may leave it out), per
         row-tiled FeCL call the (embeddings, teacher embeddings) on the
-        CPU. The port's JAX parity tests give the JAX step's."""
+        CPU, and optionally per step the foreground (probs[..., 1] > 0.5)
+        as a bool tensor, which record() does not take (the card check
+        allows train_dice one flipped voxel a sample instead); without it
+        the CPU step keeps its own. The port's JAX parity tests give the
+        JAX step's."""
         sides = cls()
         sides._relu, sides._pool, sides._fecl = list(relu), list(pool), list(fecl)
+        sides._fg = list(fg)
         return sides
 
     @staticmethod
@@ -387,8 +396,9 @@ class KinkSides:
     @contextlib.contextmanager
     def share(self):
         relu_sides, pool_sides = iter(self._relu), iter(self._pool)
-        fecl_calls = iter(self._fecl)
+        fecl_calls, fg_sides = iter(self._fecl), iter(self._fg)
         fused, chunked = fecl_fused.fecl_loss_fused, dycon.fecl_loss_chunked
+        own_foreground = train_step.foreground
         card = {}
 
         def relu(x):
@@ -426,6 +436,8 @@ class KinkSides:
             return fecl
 
         def cross_side(rows, cs, neg_t, own):
+            if "embeddings" not in card:  # the dense FeCL, whose sides are not recorded
+                return own
             feat, tfeat = (torch.nn.functional.pad(t, (0, 0, 0, cs.shape[2] - t.shape[1]))
                            for t in card["embeddings"])
             card_side = torch.einsum("btd,bnd->btn", feat[:, rows], tfeat).to(cs.dtype) > neg_t
@@ -435,13 +447,27 @@ class KinkSides:
             self._cross[(card["call"], rows.start)] = (int(near.sum()), int((side != own).sum()))
             return side
 
+        def foreground(probs):
+            # the threshold's kink: p1 within the margin of 0.5
+            own = own_foreground(probs)
+            if not self._fg:
+                return own
+            gap = probs.detach()[..., 1] - 0.5
+            near = self._near(gap, gap)
+            side = torch.where(near, next(fg_sides).to(own.device), own)
+            self.counts["fg_near"] += int(near.sum())
+            self.counts["fg_taken"] += int((side != own).sum())
+            return side
+
         with mock.patch.object(layers, "relu", relu), \
                 mock.patch.object(resize, "block_max", block_max), \
                 mock.patch.object(fecl_fused, "fecl_loss_fused", shared(fused)), \
                 mock.patch.object(dycon, "fecl_loss_chunked", shared(chunked)), \
-                mock.patch.object(fecl_fused, "cross_side", cross_side):
+                mock.patch.object(fecl_fused, "cross_side", cross_side), \
+                mock.patch.object(train_step, "foreground", foreground):
             yield self
-        if any(next(it, None) is not None for it in (relu_sides, pool_sides, fecl_calls)):
+        if any(next(it, None) is not None
+               for it in (relu_sides, pool_sides, fecl_calls, fg_sides)):
             raise RuntimeError("the CPU step passed fewer kinks than the device step")
         self.counts["cross_near"] = sum(n for n, _ in self._cross.values())
         self.counts["cross_taken"] = sum(t for _, t in self._cross.values())

@@ -62,6 +62,13 @@ SCALAR_METRICS = ("loss", "loss_ce", "loss_dice", "f_loss", "u_loss", "consisten
                   "train_dice", "skipped")
 
 
+def foreground(probs: torch.Tensor) -> torch.Tensor:
+    """The student's foreground, probs[..., 1] > 0.5 (the train Dice and
+    `pred_fg`); a module-level function, so that train/device_check.py can
+    share a side at this threshold as at the step's other kinks."""
+    return probs[..., 1] > 0.5
+
+
 class StepScalars(NamedTuple):
     """Per-step schedule values, computed on the host."""
 
@@ -186,7 +193,7 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
         total.backward()
 
         with torch.no_grad():
-            fg = s_probs[..., 1] > 0.5
+            fg = foreground(s_probs)
             pred_fg = fg.to(torch.float32)
             lab_f = label.to(torch.float32)
             inter = (pred_fg * lab_f).sum(dim=(1, 2, 3))

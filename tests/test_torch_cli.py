@@ -9,6 +9,10 @@ Train CLI (`--device cpu`, full-width UNet3D at patch 16^3, a synthetic
 .npz tree): 3 iterations with a validation and a full-state save, then
 `--resume auto`, which must restore exactly the saved state; and a time
 budget that stops cleanly after one step with a resumable checkpoint.
+
+`--layout NCDHW` (the JAX parser's choice, an alias of the port's NDHWC
+path): the test CLI's averages and one train step's state equal NDHWC's.
+`--compute_dtype auto` resolves to bfloat16 on cuda and float32 on the CPU.
 """
 
 import json
@@ -16,13 +20,14 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dycon_paper_replication_tpu.eval import SlidingWindowInference as JaxSW
 from dycon_paper_replication_tpu.eval import evaluator as jeval
 from dycon_paper_replication_tpu.models import net_factory_3d as jax_factory
 from dycon_paper_replication_tpu_torch import weights
-from dycon_paper_replication_tpu_torch.cli import test_pancreas, train_pancreas
+from dycon_paper_replication_tpu_torch.cli import test_isles22, test_pancreas, train_pancreas
 from dycon_paper_replication_tpu_torch.config import config_from_args, make_config
 from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
 from dycon_paper_replication_tpu_torch.eval import iter_h5_volumes
@@ -109,3 +114,51 @@ def test_train_cli_time_budget_stops_resumably(tmp_path):
     assert trainer.state.step == 1
     path, _ = checkpoint.latest_checkpoint_path(trainer.snapshot_path, "unet_3D")
     assert path == checkpoint.iter_checkpoint_path(trainer.snapshot_path, 1)
+
+
+@pytest.mark.parametrize("cli", ["test", "train"])
+def test_layout_ncdhw_is_the_ndhwc_path(tmp_path, cli):
+    """`--layout NCDHW`, the JAX parser's choice, is accepted as an alias of
+    the NDHWC path: the same model layout and the same outputs."""
+    assert test_isles22.build_parser().parse_args(["--layout", "NCDHW"]).layout == "NCDHW"
+    runs = {}
+    for layout in ("NDHWC", "NCDHW"):
+        if cli == "test":
+            root = tmp_path / "Pancreas"
+            if not root.exists():
+                make_pancreas(str(root), n_train=0, n_test=2, shape=(40, 36, 32), seed=3)
+                snapshot = make_config("pancreas",
+                                       snapshot_root=str(tmp_path / "runs")).snapshot_path()
+                params, state = weights.init_jax_tree(UNet3DConfig(), seed=0)
+                net = UNet3D(UNet3DConfig())
+                net.load_state_dict(weights.jax_tree_to_state_dict(params, state))
+                checkpoint.save_checkpoint(checkpoint.best_checkpoint_path(snapshot, "unet_3D"),
+                                           net)
+            args = test_pancreas.build_parser().parse_args(["--layout", layout, "--device", "cpu"])
+            assert test_pancreas.resolve_perf_flags(args)[1] == "NDHWC"
+            runs[layout] = test_pancreas.main(["--root_path", str(root), "--snapshot_root",
+                                               str(tmp_path / "runs"), "--device", "cpu",
+                                               "--layout", layout, *FLAGS])
+        else:
+            argv = _train_argv(tmp_path / layout, "--layout", layout, "--max_iterations", "1")
+            trainer = Trainer(config_from_args("pancreas", argv))
+            assert trainer.state.student.cfg.layout == "NDHWC"
+            trainer.run()
+            runs[layout] = _state_tensors(trainer.state)
+    if cli == "test":
+        assert runs["NCDHW"] == runs["NDHWC"]
+    else:
+        assert runs["NCDHW"].keys() == runs["NDHWC"].keys()
+        assert all(torch.equal(runs["NCDHW"][k], v) for k, v in runs["NDHWC"].items())
+
+
+def test_compute_dtype_auto_is_bf16_on_cuda_only():
+    """`--compute_dtype auto` in the test CLIs: bfloat16 on cuda (the rule
+    and its measurement: test_pancreas.resolve_perf_flags), float32 on the
+    CPU; an explicit dtype stands."""
+    for parser in (test_pancreas.build_parser(), test_isles22.build_parser()):
+        for device, want in (("cuda", "bfloat16"), ("cpu", "float32")):
+            args = parser.parse_args(["--device", device])
+            assert test_pancreas.resolve_perf_flags(args)[0] == want
+            args = parser.parse_args(["--device", device, "--compute_dtype", "float32"])
+            assert test_pancreas.resolve_perf_flags(args)[0] == "float32"

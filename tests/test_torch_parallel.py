@@ -14,6 +14,12 @@ store, one intra-op thread each; every spawning test has its own timeout
     again without gradient clipping (which would hide a wrong gradient
     scale), with tests/test_train.py's DP tolerances: loss rtol 2e-5,
     parameters, teacher, momentum and running stats atol 1e-5 + rtol 1e-4;
+    at the same tolerances, the shard paths that the Pancreas UNet3D does
+    not reach: the ISLES step config with `fecl_chunk` 96 under
+    `fecl_impl` "chunked" and "fused" (the row-tiled FeCL's global batch
+    and cross count; the fused one through its CPU twin), the UNet3D with
+    ASPP (its pooled BatchNorm over the global batch); and the UNet3D in
+    bfloat16 at the bfloat16 step rule (its test's doc says why);
   * the same 2-rank step against the JAX step on a 2-device CPU mesh (the
     batch sharded over conftest's virtual devices): the full-width folded
     UNet3D of tests/test_torch_train_step.py, its case and its tolerances
@@ -48,6 +54,7 @@ SPAWN_TIMEOUT = 300  # seconds for one spawned run, start-up included
 PATCH = (32, 32, 16)
 B, LBS = 4, 2
 SCALARS = (5.0, 0.1 * np.exp(-5.0), 1.3, 0.3)
+ISLES_SCALARS = SCALARS[:3] + (0.05,)
 
 
 def _batch(seed):
@@ -63,14 +70,15 @@ def _batch(seed):
     return {"image": image, "label": label}
 
 
-def _case(net_cfg, seed, **cfg):
+def _case(net_cfg, seed, dataset="pancreas", scalars=SCALARS, **cfg):
     """A step's inputs: the model config, a seeded initial state, the global
-    batch, no noise (the step draws it) and TrainConfig overrides."""
+    batch, no noise (the step draws it), the dataset's step config with
+    TrainConfig overrides, and the step scalars."""
     params, mstate = weights.init_jax_tree(net_cfg, seed=seed)
     student = build_model(net_cfg)
     student.load_state_dict(weights.jax_tree_to_state_dict(params, mstate))
     return dict(net_cfg=net_cfg, state=_state_dicts(create_train_state(student)),
-                batch=_batch(seed), noise=None, cfg=cfg)
+                batch=_batch(seed), noise=None, cfg=cfg, dataset=dataset, scalars=scalars)
 
 
 def _state_dicts(state: TrainState) -> dict:
@@ -81,6 +89,9 @@ def _state_dicts(state: TrainState) -> dict:
 
 def _train_state(net_cfg, sd: dict) -> TrainState:
     student = build_model(net_cfg)
+    if net_cfg.compute_dtype == torch.float64:  # the bf16 case's yardstick, all in float64
+        student = student.to(torch.float64)
+        sd = dict(sd, momentum={k: v.double() for k, v in sd["momentum"].items()})
     student.load_state_dict(sd["student"])
     state = create_train_state(student)
     state.teacher.load_state_dict(sd["teacher"])
@@ -94,13 +105,15 @@ def _run_steps(cases: dict, shard) -> dict:
     out = {}
     for name, case in cases.items():
         state = _train_state(case["net_cfg"], case["state"])
-        cfg = tconfig.make_config("pancreas", patch_size=PATCH, batch_size=B, labeled_bs=LBS,
-                                  device="cpu", **case.get("cfg", {}))
+        cfg = tconfig.make_config(case.get("dataset", "pancreas"), patch_size=PATCH,
+                                  batch_size=B, labeled_bs=LBS, device="cpu",
+                                  **case.get("cfg", {}))
         step = build_train_step(cfg, lambda s: cfg.base_lr, shard)
         batch = parallel.shard_batch(shard, case["batch"])
         noise = None if case["noise"] is None else torch.from_numpy(case["noise"])
         vec, _ = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                      torch.Generator().manual_seed(5), StepScalars(*SCALARS), noise=noise)
+                      torch.Generator().manual_seed(5),
+                      StepScalars(*case.get("scalars", SCALARS)), noise=noise)
         out[name] = dict(vec=vec.numpy(), state=_state_dicts(state))
     return out
 
@@ -163,15 +176,32 @@ def spawned(jax_case):
         "unet_unclipped": _case(UNet3DConfig(feature_scale=16, proj_hidden=32, proj_out=16,
                                              layout="folded"), 3, grad_clip_norm=1e9),
         "vnet": _case(VNetConfig(n_filters=4, proj_hidden=32, proj_out=16, layout="folded"), 4),
+        # the row-tiled FeCL under the ISLES step config: 8 x 8 x 4 = 256 rows
+        # at projection scale 4, in tiles of 96 (the last padded); its cross
+        # term's global count of hard pairs, with neg_thresh 0.05 so that it
+        # has pairs (train/device_check.py, SCALARS_ISLES)
+        **{f"isles_{impl}": _case(
+            UNet3DConfig(feature_scale=16, proj_hidden=32, proj_out=16, scale_factor=4,
+                         layout="folded"), 6, dataset="isles22", scalars=ISLES_SCALARS,
+            fecl_chunk=96, fecl_impl=impl) for impl in ("chunked", "fused")},
+        # ASPP's pooled BatchNorm, which takes its statistics over the global batch
+        "aspp": _case(UNet3DConfig(feature_scale=16, proj_hidden=32, proj_out=16,
+                                   use_aspp=True, layout="folded"), 7, use_aspp=True),
+        **{name: _case(UNet3DConfig(feature_scale=16, proj_hidden=32, proj_out=16,
+                                    layout="folded", compute_dtype=dtype), 3,
+                       compute_dtype="bfloat16")
+           for name, dtype in (("unet_bf16", torch.bfloat16), ("unet_bf16_f64", torch.float64))},
         "jax": dict(net_cfg=full, state=_state_dicts(weights.jax_train_state_to_torch(js0, full)),
                     batch=jax_case["batch"], noise=jax_case["noise"]),
     }
-    two = parallel.launch(_rank_steps, 2, args=(cases,), threads=1, timeout=SPAWN_TIMEOUT)
+    ranked = {k: v for k, v in cases.items() if not k.endswith("_f64")}  # 1 process only
+    two = parallel.launch(_rank_steps, 2, args=(ranked,), threads=1, timeout=SPAWN_TIMEOUT)
     one = _run_steps(cases, None)
     return cases, one, two
 
 
-@pytest.mark.parametrize("name", ["unet", "unet_unclipped", "vnet"])
+@pytest.mark.parametrize("name", ["unet", "unet_unclipped", "vnet", "isles_chunked",
+                                  "isles_fused", "aspp"])
 def test_two_ranks_match_one(spawned, name):
     _, one, two = spawned
     got, want = two[name], one[name]
@@ -179,6 +209,36 @@ def test_two_ranks_match_one(spawned, name):
     np.testing.assert_allclose(got["vec"][0], want["vec"][0], rtol=2e-5)
     np.testing.assert_allclose(got["vec"], want["vec"], rtol=2e-5, atol=1e-6)
     _assert_states_close(got["state"], want["state"])
+
+
+def test_two_ranks_match_one_bf16(spawned):
+    """The bfloat16 case at the bfloat16 step rule of the card-against-CPU
+    check (train/device_check.py: `comparisons` raised by `bf16_comparisons`
+    to 4 x each leaf's difference between the 1-process step and the same
+    step in float64). The float32 tolerances above do not hold a bfloat16
+    step split over ranks, in either package: each rank's conv weight
+    gradients are bfloat16 sums rounded before the cross-rank sum, and for
+    a weight in front of a norm those partials largely cancel. Run at them
+    first, the port's 2 ranks differed from 1 process by up to 7.5 %
+    (1.9e-4) in conv1.conv1.w's momentum; the JAX step in bfloat16 on a
+    2-device CPU mesh against 1 device, on this case's model (dropout 0)
+    and batch, fails them at 39 of 48 momentum leaves (up to 1.0e-2, conv1.conv1.b)."""
+    from dycon_paper_replication_tpu_torch.train.device_check import (
+        _lines, bf16_comparisons, comparisons, worst_by_group)
+
+    cases, one, two = spawned
+    net_cfg = cases["unet_bf16"]["net_cfg"]
+    got = _train_state(net_cfg, two["unet_bf16"]["state"])
+    want = _train_state(net_cfg, one["unet_bf16"]["state"])
+    ref = _train_state(cases["unet_bf16_f64"]["net_cfg"], one["unet_bf16_f64"]["state"])
+    label, lr = cases["unet_bf16"]["batch"]["label"], tconfig.make_config("pancreas").base_lr
+    got_vec, want_vec = two["unet_bf16"]["vec"], one["unet_bf16"]["vec"]
+    assert got_vec[SCALAR_METRICS.index("skipped")] == 0
+    rows = bf16_comparisons(
+        comparisons(got, got_vec, want, want_vec, label, lr),
+        comparisons(want, want_vec, ref, one["unet_bf16_f64"]["vec"], label, lr), want_vec)
+    print(f"worst leaf by group (difference / tolerance): {worst_by_group(rows)}")
+    assert _lines(rows, got, want) == []
 
 
 def test_two_ranks_match_jax_mesh(spawned, jax_case):
