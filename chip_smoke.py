@@ -10,8 +10,8 @@ with sliding-window evaluation, and the VNet's (`--model vnet`) Pancreas
 training and evaluation and ASPP's (`--use_aspp 1`) training, bf16
 compute (`--compute_dtype bfloat16`) of both families, each through its
 CLI, and then volume groups with pipelined evaluation, data-parallel
-training, the preprocess CLIs and the JAX package's trained Pancreas
-checkpoint's test.
+training, the preprocess CLIs, the JAX package's trained Pancreas
+checkpoint's test and the SSL ablation's driver.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -216,13 +216,23 @@ Phases, each timed on its own line:
      of its row of the TPU's log and the mean within 0.001 of the log's
      mean over the same volumes, the float32 labels equal to the plain
      engine's on >= 99.99 % of voxels (phase_trained_eval says each);
- 37. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 37. k1_ablation: K1 forward, dx and K1-dW at the 8 shapes of the SSL
+     ablation's training step (patch 64x64x48, B = ABLATION_BATCH = 4), the
+     gates of 4, 6 and 5;
+ 38. ssl_ablation: scripts/ssl_ablation_torch.py through its main on a cut
+     of its protocol (8 + 2 hard volumes, both arms 200 iterations, the
+     dense test on the 2): 16 + 7 K1 and 8 K1-dW float32 launches a step
+     and no bf16 one, finite losses, the sup arm's loss equal to its
+     supervised terms, the best checkpoints written and read back by the
+     test CLI, finite metrics (phase_ssl_ablation says each);
+ 39. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
      training, K1 forward, dx and K1-dW in VNet training; the bf16
      instances in bf16 eval, Pancreas and VNet bf16 training, with
-     bound_kind "bf16"; K1 and K1-bf16 in trained_eval), each with that
+     bound_kind "bf16"; K1 and K1-bf16 in trained_eval; K1 forward, dx and
+     K1-dW in the SSL ablation), each with that
      path's launch count and the sums
      over its shapes; then `{"ok": true, "device": {...}}` last.
 
@@ -507,7 +517,7 @@ def _conv_backward(torch, dy, x, wf, to_phase, mask):
         [1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], 1, mask)
 
 
-def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw"):
+def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw", batch=TRAIN_BATCH):
     """K1-dW against float32 and float64 plain versions at one path's
     training shapes."""
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
@@ -516,8 +526,8 @@ def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw"):
     rows = []
     for layer, g, lin, lout, to_phase in shapes:
         q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
-        x = torch.randn(TRAIN_BATCH, *g, lin, device=device, generator=gen)
-        dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
+        x = torch.randn(batch, *g, lin, device=device, generator=gen)
+        dy = torch.randn(batch, *q, lout, device=device, generator=gen)
         dwf = folded_conv3_dw.launch(x, dy, to_phase=to_phase)
         again = folded_conv3_dw.launch(x, dy, to_phase=to_phase)
         plain = folded_conv3_dw_plain(x, dy, to_phase=to_phase)
@@ -538,7 +548,7 @@ def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw"):
         plain_ms = _time_ms(torch, lambda: folded_conv3_dw_plain(x, dy, to_phase=to_phase))
         library_ms = _time_ms(
             torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [False, True, False]))
-        flops = 2 * TRAIN_BATCH * math.prod(q) * lin * lout * 8
+        flops = 2 * batch * math.prod(q) * lin * lout * 8
         bound = _bound(flops, 4 * (x.numel() + dy.numel() + dwf.numel()), peaks)
         row = dict(layer=layer, x=list(x.shape), dy=list(dy.shape), to_phase=to_phase,
                    max_abs_err=err, plain_f32_err=err_plain, tol=tol, max_abs_ref=scale,
@@ -551,7 +561,7 @@ def phase_dw(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dw"):
     return rows
 
 
-def phase_dx(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dx"):
+def phase_dx(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dx", batch=TRAIN_BATCH):
     """dx through K1 (taps flipped and transposed, opposite phase) at one
     path's training shapes whose input needs a gradient."""
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
@@ -560,8 +570,8 @@ def phase_dx(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dx"):
     rows = []
     for layer, g, lin, lout, to_phase in shapes[1:]:
         q = tuple(n + (1 if to_phase == 1 else -1) for n in g)
-        x = torch.empty(TRAIN_BATCH, *g, lin, device=device)
-        dy = torch.randn(TRAIN_BATCH, *q, lout, device=device, generator=gen)
+        x = torch.empty(batch, *g, lin, device=device)
+        dy = torch.randn(batch, *q, lout, device=device, generator=gen)
         wf = torch.randn(2, 2, 2, lin, lout, device=device, generator=gen) / math.sqrt(8 * lout)
         wf_t = wf.flip(0, 1, 2).transpose(3, 4).contiguous()
         dx = folded_conv3_dx.launch(dy, wf_t, to_phase=1 - to_phase)
@@ -578,7 +588,7 @@ def phase_dx(torch, device, gen, peaks, shapes=TRAIN_SHAPES, tag="k1_dx"):
         plain_ms = _time_ms(torch, lambda: folded_conv3_plain(dy, wf_t, to_phase=1 - to_phase))
         library_ms = _time_ms(
             torch, lambda: _conv_backward(torch, dy, x, wf, to_phase, [True, False, False]))
-        flops = 2 * TRAIN_BATCH * math.prod(g) * lin * lout * 8
+        flops = 2 * batch * math.prod(g) * lin * lout * 8
         bound = _bound(flops, 4 * (dy.numel() + wf.numel() + dx.numel()), peaks)
         row = dict(layer=layer, dy=list(dy.shape), dx=list(dx.shape), to_phase=1 - to_phase,
                    max_abs_err=err, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
@@ -2253,6 +2263,148 @@ def check_trained_eval(out):
                f"on {row['folded_vs_plain']} < {TRAINED_PLAIN_AGREE} of voxels")
 
 
+# The SSL ablation (scripts/ssl_ablation_torch.py) at its defaults: patch
+# 64x64x48, batch 4 of which 2 labeled, so K1's fold grids are (32, 32, 24)
+# at the first level. The smoke runs a cut of the protocol (phase_ssl_ablation)
+ABLATION_PATCH, ABLATION_BATCH = (64, 64, 48), 4
+ABLATION_SHAPES = [
+    ("conv1.conv1", (32, 32, 24), 8, 128, 1), ("conv1.conv2", (33, 33, 25), 128, 128, 0),
+    ("conv2.conv1", (16, 16, 12), 128, 256, 1), ("conv2.conv2", (17, 17, 13), 256, 256, 0),
+    ("up_concat2.conv1", (16, 16, 12), 768, 256, 1), ("up_concat2.conv2", (17, 17, 13), 256, 256, 0),
+    ("up_concat1.conv1", (32, 32, 24), 384, 128, 1), ("up_concat1.conv2", (33, 33, 25), 128, 128, 0),
+]
+ABLATION_TREE = dict(n_train=8, n_test=2, shape=(96, 96, 64))  # the default is 40 + 8
+# 200 iterations of the default 2500: at 100, the first planned cut, the
+# dycon arm's validation Dice was 0.0 at both validations on the card, so it
+# saved no best model (as the JAX trainer saves only a Dice above 0)
+ABLATION_ITERS, ABLATION_VAL_EVERY, ABLATION_SEED = 200, 50, 1337
+
+
+def phase_ssl_ablation(torch, tmp):
+    """The SSL ablation's driver (scripts/ssl_ablation_torch.py, through its
+    main) on a cut of its protocol: a hard tree (make_hard_pancreas) of 8
+    training and 2 test volumes of (96, 96, 64), both arms (sup, dycon) at
+    seed 1337 for 200 iterations with --val_every 50, then the dense test
+    (test_pancreas, stride 32/24, float32) on the 2 volumes. Gates, each a
+    failure of the phase:
+      * every step of both arms launches 16 K1, 7 K1 dx and 8 K1-dW in
+        float32 and no bf16 instance, counted with the counts set to 0 before
+        the step and read after it;
+      * every loss of every step is finite and no step is skipped, and so is
+        every info/* scalar in each arm's metrics.jsonl;
+      * the sup arm's total loss equals its supervised terms, loss_ce +
+        loss_dice in float32, exactly (u_weight and consistency are 0), while
+        its UnCL term is still computed (finite);
+      * both arms reach iteration 200; each best checkpoint is written at
+        the arm's run directory and is the file the test CLI restores, whose
+        forward launches float32 K1 only;
+      * the best validation Dice and the test Dice, Jaccard, HD95 and ASD of
+        each arm are finite.
+    Returns the launch sums over both arms' steps, the driver's results and
+    the per-step wall times."""
+    import importlib.util
+
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    spec = importlib.util.spec_from_file_location(
+        "ssl_ablation_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                           "ssl_ablation_torch.py"))
+    abl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(abl)
+    counters = _dtype_counters(torch)
+    want = {**{f"{k}_f32": n for k, n in UNET_STEP_LAUNCHES.items()},
+            **{f"{k}_bf16": 0 for k in UNET_STEP_LAUNCHES}}
+    steps = {"sup": [], "dycon": []}
+    restored, test_launches = [], {}
+
+    class CountedTrainer(abl.Trainer):
+        def __init__(self, cfg, *args, **kwargs):
+            super().__init__(cfg, *args, **kwargs)
+            rows, step = steps[cfg.exp.removeprefix("hard_")], self.train_step
+
+            def counted_step(*a, **k):
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                vals = out[0].tolist()
+                rows.append(dict(**{n: c.launches for n, c in counters.items()},
+                                 ms=(time.perf_counter() - t0) * 1e3,
+                                 **dict(zip(SCALAR_METRICS, vals))))
+                return out
+
+            self.train_step = counted_step
+
+    real_test, real_restore = abl.test_pancreas.main, checkpoint.restore_checkpoint
+
+    def counted_test(argv):
+        for c in counters.values():
+            c.launches = 0
+        out = real_test(argv)
+        test_launches[argv[argv.index("--exp") + 1]] = {n: c.launches
+                                                        for n, c in counters.items()}
+        return out
+
+    def recorded_restore(path, *args, **kwargs):
+        restored.append(path)
+        return real_restore(path, *args, **kwargs)
+
+    root, work = os.path.join(tmp, "hard_pancreas"), os.path.join(tmp, "ablation_runs")
+    argv = ["--iters", str(ABLATION_ITERS), "--val_every", str(ABLATION_VAL_EVERY),
+            "--seed", str(ABLATION_SEED), "--n_train", str(ABLATION_TREE["n_train"]),
+            "--n_test", str(ABLATION_TREE["n_test"]),
+            "--shape", *[str(n) for n in ABLATION_TREE["shape"]], "--root", root, "--work", work,
+            "--device", "cuda"]
+    with mock.patch.object(abl, "Trainer", CountedTrainer), \
+            mock.patch.object(abl.test_pancreas, "main", counted_test), \
+            mock.patch.object(checkpoint, "restore_checkpoint", recorded_restore):
+        results = abl.main(argv)
+    args = abl.build_parser().parse_args(argv)
+
+    ce, dice, total = (SCALAR_METRICS.index(k) for k in ("loss_ce", "loss_dice", "loss"))
+    for arm, rows in steps.items():
+        _check(len(rows) == ABLATION_ITERS, f"ssl_ablation {arm}: {len(rows)} steps ran")
+        for i, row in enumerate(rows):
+            ran = {k: row[k] for k in counters}
+            _check(ran == want, f"ssl_ablation {arm} step {i + 1}: launches {ran}, want {want}")
+            _check(all(math.isfinite(row[k]) for k in SCALAR_METRICS) and not row["skipped"],
+                   f"ssl_ablation {arm} step {i + 1}: {row}")
+            if arm == "sup":
+                supervised = float(np.float32(row["loss_ce"]) + np.float32(row["loss_dice"]))
+                _check(row["loss"] == supervised,
+                       f"ssl_ablation sup step {i + 1}: loss {row['loss']} != loss_ce + "
+                       f"loss_dice {supervised}")
+        snapshot = abl.arm_config(args, arm).snapshot_path()
+        with open(os.path.join(snapshot, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        bad = [r for r in logged if r["tag"].startswith("info/") and not math.isfinite(r["value"])]
+        _check(not bad and logged, f"ssl_ablation {arm}: non-finite logged scalars {bad[:4]}")
+        best = checkpoint.best_checkpoint_path(snapshot, "unet_3D")
+        _check(os.path.isfile(best) and best in restored,
+               f"ssl_ablation {arm}: best checkpoint {best} not written or not read by the "
+               f"test CLI (restored {restored})")
+        res = results[arm]
+        _check(res["final_iter"] == ABLATION_ITERS, f"ssl_ablation {arm}: {res}")
+        _check(all(math.isfinite(res[k]) for k in ("best_val_dice", "test_dice", "test_jaccard",
+                                                    "test_hd95", "test_asd")),
+               f"ssl_ablation {arm}: non-finite metrics {res}")
+        tl = test_launches[f"hard_{arm}"]
+        _check(tl["k1_f32"] > 0 and tl["k1_bf16"] == 0 and tl["k1_dx_f32"] == tl["k1_dw_f32"] == 0,
+               f"ssl_ablation {arm}: test CLI launches {tl}")
+        ms = [r["ms"] for r in rows[1:]]
+        print(f"ssl_ablation {arm}: " + json.dumps(dict(
+            res, step_ms_median=statistics.median(ms), u_loss_last=rows[-1]["u_loss"],
+            f_loss_last=rows[-1]["f_loss"], test_launches=tl)), flush=True)
+    sup_u = [r["u_loss"] for r in steps["sup"]]
+    print(f"ssl_ablation sup: UnCL computed with weight 0, first/last {sup_u[0]} / {sup_u[-1]}")
+    return dict(results=results,
+                launches={k: sum(r[f"{k}_f32"] for rows in steps.values() for r in rows)
+                          for k in UNET_STEP_LAUNCHES})
+
+
 def main() -> int:
     import torch
 
@@ -2451,6 +2603,17 @@ def main() -> int:
         t0 = time.perf_counter()
         trained = phase_trained_eval(torch, device, tmp)
         _phase("trained_eval", t0)
+        t0 = time.perf_counter()
+        k1_abl_rows = phase_k1(torch, device, gen, peaks, ABLATION_SHAPES, ABLATION_BATCH,
+                               "k1_ablation")
+        dx_abl_rows = phase_dx(torch, device, gen, peaks, ABLATION_SHAPES, "k1_dx_ablation",
+                               ABLATION_BATCH)
+        dw_abl_rows = phase_dw(torch, device, gen, peaks, ABLATION_SHAPES, "k1_dw_ablation",
+                               ABLATION_BATCH)
+        _phase("k1_ablation", t0)
+        t0 = time.perf_counter()
+        ablation = phase_ssl_ablation(torch, tmp)
+        _phase("ssl_ablation", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -2509,6 +2672,12 @@ def main() -> int:
     kernels.append(_kernel_entry("folded_conv3_bf16_trained", "trained_eval_bf16", k1_src,
                                  K1_REPLACES, trained["k1_launches"]["bfloat16"],
                                  bf16_rows["eval"], bound="bf16"))
+    for name, launches_key, rows, src, replaces in (
+            ("folded_conv3_ablation", "k1", k1_abl_rows, k1_src, K1_REPLACES),
+            ("folded_conv3_dx_ablation", "k1_dx", dx_abl_rows, k1_src, dx_replaces),
+            ("folded_conv3_dw_ablation", "k1_dw", dw_abl_rows, dw_src, dw_replaces)):
+        kernels.append(_kernel_entry(name, "ssl_ablation", src, replaces,
+                                     ablation["launches"][launches_key], rows, bound="tf32x3"))
     for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
                            ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):
         kernels.append(dict(name=name, path="isles_train", route="cuda", source=K2_SOURCE,

@@ -1,4 +1,4 @@
-"""Data: datasets, transforms, the two-stream sampler, the batch loader,
+"""Data: datasets, transforms, the two- and three-stream samplers, the batch loader,
 synthetic dataset trees, and NIfTI reading and preprocessing."""
 
 from . import nifti
@@ -13,12 +13,23 @@ from .preprocess import (
     preprocess_isles22,
     resample,
 )
-from .samplers import TwoStreamBatchSampler
-from .synthetic import make_brats19
-from .transforms import Compose, RandomCrop, RandomRotFlip, SagittalToAxial, ToArray
+from .samplers import ThreeStreamBatchSampler, TwoStreamBatchSampler
+from .synthetic import make_brats19, make_hard_pancreas
+from .transforms import (
+    CenterCrop,
+    Compose,
+    CreateOnehotLabel,
+    RandomCrop,
+    RandomNoise,
+    RandomRotFlip,
+    Resize,
+    SagittalToAxial,
+    ToArray,
+)
 
-__all__ = ["BRATS_TARGET_SHAPE", "BatchLoader", "BraTS2019", "Compose", "ISLESDataset",
-           "ISLES_TARGET_SHAPE", "Pancreas", "RandomCrop", "RandomRotFlip", "SagittalToAxial",
+__all__ = ["BRATS_TARGET_SHAPE", "BatchLoader", "BraTS2019", "CenterCrop", "Compose",
+           "CreateOnehotLabel", "ISLESDataset", "ISLES_TARGET_SHAPE", "Pancreas", "RandomCrop",
+           "RandomNoise", "RandomRotFlip", "Resize", "SagittalToAxial", "ThreeStreamBatchSampler",
            "ToArray", "TwoStreamBatchSampler", "VolumeDataset", "create_isles_splits",
-           "make_brats19", "nifti", "normalize_image", "preprocess_brats2019",
-           "preprocess_isles22", "resample"]
+           "make_brats19", "make_hard_pancreas", "nifti", "normalize_image",
+           "preprocess_brats2019", "preprocess_isles22", "resample"]

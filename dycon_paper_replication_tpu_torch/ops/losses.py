@@ -1,8 +1,9 @@
 """Segmentation and consistency losses over channels-last tensors: logits
 (B, D1, D2, D3, C), integer label maps (B, D1, D2, D3).
 
-Counterpart of dycon_paper_replication_tpu/ops/losses.py (the losses the
-train step uses).
+Counterpart of dycon_paper_replication_tpu/ops/losses.py: the losses the
+train step uses, and the package's other losses (the probability-map
+consistency losses, entropy, focal, symmetric MSE).
 """
 
 from __future__ import annotations
@@ -65,3 +66,45 @@ def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> 
     target = torch.softmax(target_logits, dim=-1).detach()
     target_log = torch.log(target.clamp_min(1e-30))
     return (target * (target_log - input_log)).mean()
+
+
+def mse_consistency_loss(input_probs: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference of two probability maps (already softmaxed);
+    no gradient to the target."""
+    return ((input_probs - target_probs.detach()) ** 2).mean()
+
+
+def kl_consistency_loss(input_probs: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:
+    """KL(target || input) on probability maps, mean over all elements; no
+    gradient to the target."""
+    target = target_probs.detach()
+    return (target * (torch.log(target.clamp_min(1e-30))
+                      - torch.log(input_probs.clamp_min(1e-30)))).mean()
+
+
+def entropy_loss(probs: torch.Tensor, num_classes: int = 2) -> torch.Tensor:
+    """Mean Shannon entropy of a probability map (..., C), normalised by
+    log(num_classes)."""
+    return (entropy_map(probs) / torch.log(torch.tensor(float(num_classes)))).mean()
+
+
+def entropy_map(probs: torch.Tensor) -> torch.Tensor:
+    """Per-voxel Shannon entropy of a probability map (..., C) -> (...)."""
+    return -(probs * torch.log(probs + 1e-6)).sum(dim=-1)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+               alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-class focal loss, mean-reduced: logits (..., C), integer labels
+    (...), `alpha` optional (C,) class weights; no gradient through p_t."""
+    logpt = F.log_softmax(logits, dim=-1).gather(-1, labels[..., None].long())[..., 0]
+    pt = logpt.detach().exp()
+    if alpha is not None:
+        logpt = logpt * torch.as_tensor(alpha, dtype=logits.dtype,
+                                        device=logits.device)[labels.long()]
+    return (-((1.0 - pt) ** gamma) * logpt).mean()
+
+
+def symmetric_mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean squared error with gradients to both inputs."""
+    return ((a - b) ** 2).mean()

@@ -1,10 +1,10 @@
-"""Segmentation quality metrics, host side (numpy/scipy).
+"""Segmentation quality metrics.
 
-Counterpart of the host half of dycon_paper_replication_tpu/ops/metrics.py
-(its device half is JAX and is not needed by the evaluation path):
-dice / jaccard scalars, hd95, asd, sensitivity, specificity,
-calculate_metric_percase, compute_hd95_batch (the trainer's train-HD95),
-largest_connected_component.
+Counterpart of dycon_paper_replication_tpu/ops/metrics.py:
+  * on tensors, batched: batch_dice, batch_jaccard (per sample);
+  * on the host (numpy/scipy): dice / jaccard scalars, hd95, asd,
+    sensitivity, specificity, calculate_metric_percase, compute_hd95_batch
+    (the trainer's train-HD95), largest_connected_component.
 
 medpy conventions (medpy.metric.binary, which the original evaluation uses):
   * surface voxels = object minus its binary erosion with the
@@ -21,7 +21,25 @@ connectivity (26-neighbourhood) + bincount argmax.
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy import ndimage
+
+
+def batch_dice(pred: torch.Tensor, label: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Per-sample soft or hard Dice over (B, ...) masks -> (B,), in float32."""
+    dims = tuple(range(1, pred.dim()))
+    pred, label = pred.to(torch.float32), label.to(torch.float32)
+    inter = (pred * label).sum(dim=dims)
+    return 2.0 * inter / (pred.sum(dim=dims) + label.sum(dim=dims) + eps)
+
+
+def batch_jaccard(pred: torch.Tensor, label: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Per-sample Jaccard over (B, ...) masks -> (B,), in float32."""
+    dims = tuple(range(1, pred.dim()))
+    pred, label = pred.to(torch.float32), label.to(torch.float32)
+    inter = (pred * label).sum(dim=dims)
+    return inter / (pred.sum(dim=dims) + label.sum(dim=dims) - inter + eps)
+
 
 def dice(pred: np.ndarray, gt: np.ndarray) -> float:
     pred = np.asarray(pred, bool)

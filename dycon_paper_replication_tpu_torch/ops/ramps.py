@@ -1,8 +1,8 @@
 """Hyper-parameter ramp schedules, evaluated on the host per iteration or
 epoch and handed to the train step as Python floats.
 
-Counterpart of dycon_paper_replication_tpu/ops/ramps.py (the schedules the
-trainer uses).
+Counterpart of dycon_paper_replication_tpu/ops/ramps.py: the schedules the
+trainer uses, and the linear ramp-up and cosine ramp-down.
 """
 
 from __future__ import annotations
@@ -16,6 +16,24 @@ def sigmoid_rampup(current: float, rampup_length: float) -> float:
         return 1.0
     phase = 1.0 - min(max(float(current), 0.0), rampup_length) / rampup_length
     return math.exp(-5.0 * phase * phase)
+
+
+def linear_rampup(current: float, rampup_length: float) -> float:
+    """Linear ramp from 0 to 1 over `rampup_length` steps."""
+    if current < 0 or rampup_length < 0:
+        raise ValueError(f"need current >= 0 and rampup_length >= 0, got {current}, "
+                         f"{rampup_length}")
+    if current >= rampup_length:
+        return 1.0
+    return current / rampup_length
+
+
+def cosine_rampdown(current: float, rampdown_length: float) -> float:
+    """Cosine ramp from 1 down to 0 over `rampdown_length` steps."""
+    if not 0 <= current <= rampdown_length:
+        raise ValueError(f"need 0 <= current <= rampdown_length, got {current}, "
+                         f"{rampdown_length}")
+    return 0.5 * (math.cos(math.pi * current / rampdown_length) + 1.0)
 
 
 def adaptive_beta(epoch: float, total_epochs: float, max_beta: float = 5.0,

@@ -6,8 +6,8 @@ coordinate conventions:
         src = (dst + 0.5) * in / out - 0.5, clamped at 0;
   * align_corners=True (the projection head):  src = dst * (in-1) / (out-1).
 Source indices are clamped to the valid range. Also the 2x max pool and the
-non-overlapping average pool of the FeCL mask, and ASPP's global average
-pool.
+non-overlapping average pool of the FeCL mask, ASPP's global average
+pool, and the zero pad to a shape.
 """
 
 from __future__ import annotations
@@ -88,3 +88,13 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Adaptive (1, 1, 1) average pool over the spatial axes of
     (B, D1, D2, D3, C), keeping them: (B, 1, 1, 1, C)."""
     return x.mean(dim=(1, 2, 3), keepdim=True)
+
+
+def pad_to_shape(x: torch.Tensor, spatial: tuple[int, int, int]) -> torch.Tensor:
+    """Zero-pad the spatial axes of (B, D1, D2, D3, C) up to `spatial`,
+    split evenly (the extra voxel on the trailing side)."""
+    pads = []
+    for axis in (3, 2, 1):  # F.pad lists the last axis first
+        extra = max(spatial[axis - 1] - x.shape[axis], 0)
+        pads += [extra // 2, extra - extra // 2]
+    return torch.nn.functional.pad(x, [0, 0] + pads)
