@@ -11,7 +11,8 @@ training and evaluation and ASPP's (`--use_aspp 1`) training, bf16
 compute (`--compute_dtype bfloat16`) of both families, each through its
 CLI, and then volume groups with pipelined evaluation, data-parallel
 training, the preprocess CLIs, the JAX package's trained Pancreas
-checkpoint's test and the SSL ablation's driver.
+checkpoint's test and the SSL ablation, and last every training path
+twice, whose reruns must be bit-identical.
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -225,7 +226,22 @@ Phases, each timed on its own line:
      and no bf16 one, finite losses, the sup arm's loss equal to its
      supervised terms, the best checkpoints written and read back by the
      test CLI, finite metrics (phase_ssl_ablation says each);
- 39. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 39. determinism: `--deterministic 1` (the trainer's default:
+     torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG
+     :4096:8) gives bit-identical reruns: each training path (the Pancreas
+     defaults, ISLES with K2, BraTS, the VNet, ASPP, the bf16 UNet3D) run
+     twice through its train CLI's Trainer, 3 steps each from one seed, the
+     student, teacher, momentum, every running stat and every logged info/
+     and train/ scalar equal (torch.equal); so the Pancreas Trainer in two
+     gloo ranks on the card (--data_parallel 2), and the SSL ablation's
+     DyCON arm rerun at phase 38's cut (its validation curve, every logged
+     scalar and its best checkpoint against phase 38's). Printed, not
+     gated: one full-width step run twice with the mode off and twice with
+     it on (the UNet3D and with ASPP), the arm's cut rerun with the mode off
+     against the mode-on run, the arm's UnCL beta at --iters 100 and 200,
+     and each path's ms per step with the mode on, on without its NaN fill
+     of uninitialised memory, and off (phase_determinism says each);
+ 40. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
@@ -1877,6 +1893,29 @@ def _dp_steps(torch, device, cases, rank=0, world=1):
     return out
 
 
+def _seeded_case(model, use_aspp=False):
+    """A full-width train step's inputs: the folded `model` (unet_3D, with
+    ASPP under `use_aspp`, or vnet) at seeded weights in the JAX layout, and
+    a batch of TRAIN_BATCH ellipsoids at TRAIN_PATCH (half labeled)."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch import weights
+    from dycon_paper_replication_tpu_torch.models import model_config
+
+    rng = np.random.default_rng(SEED)
+    label = np.zeros((TRAIN_BATCH,) + TRAIN_PATCH, np.int32)
+    for b in range(TRAIN_BATCH):
+        c = rng.uniform(0.3, 0.7, 3) * TRAIN_PATCH
+        r = rng.uniform(0.2, 0.4, 3) * TRAIN_PATCH
+        grid = np.ogrid[tuple(slice(0, s) for s in TRAIN_PATCH)]
+        label[b] = sum(((g - ci) / ri) ** 2 for g, ci, ri in zip(grid, c, r)) <= 1.0
+    image = (0.4 * label + 0.1 * rng.standard_normal(label.shape)).astype(np.float32)[..., None]
+    net_cfg = model_config(model, layout="folded", scaler=2, use_aspp=use_aspp)
+    p, s = weights.init_jax_tree(net_cfg, seed=SEED)
+    return dict(model=model, net_cfg=net_cfg, batch={"image": image, "label": label},
+                state=weights.jax_tree_to_state_dict(p, s))
+
+
 def phase_dp_train(torch, device, tmp, root):
     """Data parallelism on the one card (module doc, phase 34): the Pancreas
     train CLI's entry at its defaults with --data_parallel 1 (one spawned
@@ -1887,11 +1926,8 @@ def phase_dp_train(torch, device, tmp, root):
     step in one process, for the UNet3D and the VNet: loss rtol 2e-5,
     parameters atol 1e-5 + rtol 1e-4 (tests/test_train.py's DP test), the
     BatchNorm running stats within 1e-5 + STATS_REL x max|tensor|."""
-    import numpy as np
-
-    from dycon_paper_replication_tpu_torch import parallel, weights
+    from dycon_paper_replication_tpu_torch import parallel
     from dycon_paper_replication_tpu_torch.config import config_from_args
-    from dycon_paper_replication_tpu_torch.models import model_config
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3, folded_conv3_dw, folded_conv3_dx)
     from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
@@ -1950,20 +1986,7 @@ def phase_dp_train(torch, device, tmp, root):
           f"{len(l_plain)} logged scalars within rtol 2e-5, the step-{DP_STEPS} checkpoint "
           f"within atol 1e-5 + rtol 1e-4 (max |diff| {worst:.3g})")
 
-    rng = np.random.default_rng(SEED)
-    label = np.zeros((TRAIN_BATCH,) + TRAIN_PATCH, np.int32)
-    for b in range(TRAIN_BATCH):
-        c = rng.uniform(0.3, 0.7, 3) * TRAIN_PATCH
-        r = rng.uniform(0.2, 0.4, 3) * TRAIN_PATCH
-        grid = np.ogrid[tuple(slice(0, s) for s in TRAIN_PATCH)]
-        label[b] = sum(((g - ci) / ri) ** 2 for g, ci, ri in zip(grid, c, r)) <= 1.0
-    image = (0.4 * label + 0.1 * rng.standard_normal(label.shape)).astype(np.float32)[..., None]
-    cases = {}
-    for model in ("unet_3D", "vnet"):
-        net_cfg = model_config(model, layout="folded", scaler=2)
-        p, s = weights.init_jax_tree(net_cfg, seed=SEED)
-        cases[model] = dict(model=model, net_cfg=net_cfg, batch={"image": image, "label": label},
-                            state=weights.jax_tree_to_state_dict(p, s))
+    cases = {model: _seeded_case(model) for model in ("unet_3D", "vnet")}
     one = _dp_steps(torch, device, cases)
     two = parallel.launch(_dp_step_rank, 2, device="cuda", devices=[str(device)] * 2,
                           backend="gloo", args=(cases,), timeout=600)
@@ -2266,6 +2289,18 @@ def check_trained_eval(out):
 # The SSL ablation (scripts/ssl_ablation_torch.py) at its defaults: patch
 # 64x64x48, batch 4 of which 2 labeled, so K1's fold grids are (32, 32, 24)
 # at the first level. The smoke runs a cut of the protocol (phase_ssl_ablation)
+def _load_ablation():
+    """scripts/ssl_ablation_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ssl_ablation_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                           "ssl_ablation_torch.py"))
+    abl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(abl)
+    return abl
+
+
 ABLATION_PATCH, ABLATION_BATCH = (64, 64, 48), 4
 ABLATION_SHAPES = [
     ("conv1.conv1", (32, 32, 24), 8, 128, 1), ("conv1.conv2", (33, 33, 25), 128, 128, 0),
@@ -2301,19 +2336,13 @@ def phase_ssl_ablation(torch, tmp):
       * the best validation Dice and the test Dice, Jaccard, HD95 and ASD of
         each arm are finite.
     Returns the launch sums over both arms' steps, the driver's results and
-    the per-step wall times."""
-    import importlib.util
-
+    its argv."""
     import numpy as np
 
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
     from dycon_paper_replication_tpu_torch.utils import checkpoint
 
-    spec = importlib.util.spec_from_file_location(
-        "ssl_ablation_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                                           "ssl_ablation_torch.py"))
-    abl = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(abl)
+    abl = _load_ablation()
     counters = _dtype_counters(torch)
     want = {**{f"{k}_f32": n for k, n in UNET_STEP_LAUNCHES.items()},
             **{f"{k}_bf16": 0 for k in UNET_STEP_LAUNCHES}}
@@ -2400,9 +2429,289 @@ def phase_ssl_ablation(torch, tmp):
             f_loss_last=rows[-1]["f_loss"], test_launches=tl)), flush=True)
     sup_u = [r["u_loss"] for r in steps["sup"]]
     print(f"ssl_ablation sup: UnCL computed with weight 0, first/last {sup_u[0]} / {sup_u[-1]}")
-    return dict(results=results,
+    return dict(results=results, argv=argv,
                 launches={k: sum(r[f"{k}_f32"] for rows in steps.values() for r in rows)
                           for k in UNET_STEP_LAUNCHES})
+
+
+DET_STEPS = 3  # each run of phase determinism: 3 steps of a train CLI's Trainer
+DET_WARM, DET_TIMED = 2, 3  # the mode's cost: steps per setting, warm-up and timed
+
+
+def _leaves(state):
+    """{name: CPU copy} of a train state's student and teacher (parameters
+    and BatchNorm running stats) and its momentum buffers."""
+    out = {}
+    for part, tensors in (("student", state.student.state_dict()),
+                          ("teacher", state.teacher.state_dict()), ("momentum", state.momentum)):
+        out.update({f"{part}.{k}": v.detach().cpu().clone() for k, v in tensors.items()})
+    return out
+
+
+def _logged(snapshot):
+    """{(step, tag): value} of the info/ and train/ scalars a run logged
+    (every one but the perf/ wall-clock times and host RSS)."""
+    with open(os.path.join(snapshot, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {(r["step"], r["tag"]): r["value"] for r in rows
+            if r["tag"].startswith(("info/", "train/"))}
+
+
+def _first_difference(torch, a, b):
+    """(the first name in `a`'s order whose tensor is not bit-equal in `b`,
+    its max |diff|, the number of such names); (None, 0.0, 0) when every
+    tensor is equal."""
+    _check(a.keys() == b.keys(), "the two runs' tensor names differ")
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if not diff:
+        return None, 0.0, 0
+    return diff[0], float((a[diff[0]].double() - b[diff[0]].double()).abs().max()), len(diff)
+
+
+def _hold_identical(torch, tag, first, second, n_steps=DET_STEPS):
+    """The gate of phase determinism: two runs' ({name: tensor}, {(step,
+    tag): value}) bit-identical, with a scalar logged at each of n_steps."""
+    (state_a, logged_a), (state_b, logged_b) = first, second
+    name, diff, n = _first_difference(torch, state_a, state_b)
+    _check(name is None, f"determinism {tag}: {n} of {len(state_a)} state tensors differ between "
+           f"the runs, the first {name} (max |diff| {diff})")
+    steps = sorted({step for step, _ in logged_a})
+    _check(logged_a == logged_b and steps == list(range(1, n_steps + 1)),
+           f"determinism {tag}: logged scalars differ or are missing: "
+           f"{sorted(set(logged_a.items()) ^ set(logged_b.items()))[:4]}, steps {steps}")
+    print(f"determinism {tag}: 2 runs of {n_steps} steps bit-identical: {len(state_a)} state "
+          f"tensors (student, teacher, momentum, running stats), {len(logged_a)} logged "
+          f"scalars", flush=True)
+
+
+# the settings _mode_ms times: (name, torch.use_deterministic_algorithms,
+# torch.utils.deterministic.fill_uninitialized_memory, which the mode
+# turns on by default: torch.empty's outputs filled with NaN)
+DET_MODES = (("on", True, True), ("on_nofill", True, False), ("off", False, True))
+
+
+def _mode_ms(torch, trainer):
+    """ms per step of `trainer`'s step on one batch of its loader under each
+    of DET_MODES, toggling those two settings alone: DET_WARM + DET_TIMED
+    steps each, the timed ones returned. Leaves the mode on, and the fill."""
+    import torch.utils.deterministic
+
+    from dycon_paper_replication_tpu_torch import parallel
+    from dycon_paper_replication_tpu_torch.train.step import StepScalars
+
+    epochs = trainer.loader.epochs(1)
+    _, batch = next(epochs)
+    epochs.close()
+    batch = {k: torch.from_numpy(v).to(trainer.device)
+             for k, v in parallel.shard_batch(trainer.shard, batch).items()}
+    beta, pos, neg = trainer._epoch_scalars(0)
+    scalars = StepScalars(beta, trainer._consistency_weight(0), pos, neg)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    out = {}
+    for name, mode, fill in DET_MODES:
+        torch.use_deterministic_algorithms(mode)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        times = []
+        for _ in range(DET_WARM + DET_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, batch, gen, scalars)[0].tolist()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times[DET_WARM:]
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    return out
+
+
+def _det_dp_rank(rank, world, device, argvs):
+    """One rank of phase determinism's data-parallel runs: for each argv
+    of `argvs`, the Pancreas train CLI's Trainer in this rank (as
+    cli.train_pancreas --data_parallel 2 runs it) for DET_STEPS steps; then
+    the mode's cost on the last. Rank 0's states, logged scalars, steps and
+    ms per step."""
+    import dataclasses
+
+    import torch
+
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+
+    runs = []
+    for argv in argvs:
+        cfg = dataclasses.replace(config_from_args("pancreas", argv), device=str(device))
+        trainer = Trainer(cfg, rank, world)
+        trainer.run()
+        runs.append((_leaves(trainer.state), _logged(trainer.snapshot_path) if rank == 0 else None,
+                     trainer.state.step))
+    return dict(runs=runs, ms=_mode_ms(torch, trainer))
+
+
+def _control(torch, device):
+    """The control that names the culprit (printed, not a gate): one
+    full-width Pancreas DyCON step (_seeded_case: batch 8 at 112x112x96,
+    dense FeCL), the UNet3D and the UNet3D with ASPP, run twice from the same
+    state with the mode off and then twice with it on; for each pair, the
+    first state tensor that differs and how many do."""
+    from dycon_paper_replication_tpu_torch.config import make_config
+    from dycon_paper_replication_tpu_torch.models import build_model
+    from dycon_paper_replication_tpu_torch.train.state import create_train_state
+    from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
+
+    for tag, case in (("unet_3D", _seeded_case("unet_3D")),
+                      ("aspp", _seeded_case("unet_3D", use_aspp=True))):
+        cfg = make_config("pancreas", batch_size=TRAIN_BATCH, labeled_bs=TRAIN_BATCH // 2,
+                          patch_size=TRAIN_PATCH, device=str(device))
+        step = build_train_step(cfg, lambda s: cfg.base_lr)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in case["batch"].items()}
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            runs = []
+            for _ in range(2):
+                student = build_model(case["net_cfg"])
+                student.load_state_dict(case["state"])
+                state = create_train_state(student.to(device))
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                step(state, batch, gen, StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
+                runs.append(_leaves(state))
+            name, diff, n = _first_difference(torch, *runs)
+            print(f"determinism control {tag}: mode {'on' if mode else 'off'}: "
+                  + ("the two steps are bit-identical" if name is None
+                     else f"{n} of {len(runs[0])} state tensors differ, the first {name} "
+                          f"(max |diff| {diff})"), flush=True)
+    torch.use_deterministic_algorithms(True)
+
+
+def phase_determinism(torch, device, tmp, roots, ablation):
+    """`--deterministic 1` (the default) on the card: every training path
+    run twice through its train CLI's Trainer, DET_STEPS steps each from the
+    same seed into two snapshot directories, must be bit-identical (torch.equal)
+    in the student, the teacher, the momentum buffers and every BatchNorm
+    running stat, and in every logged info/ and train/ scalar of every step:
+    the Pancreas defaults (dense FeCL), ISLES (fused FeCL through K2), BraTS,
+    the VNet, the UNet3D with ASPP and the bf16 UNet3D, each at full width
+    on the trees of the earlier phases; the Pancreas Trainer in two gloo
+    ranks on the one card (--data_parallel 2, the global batch of 8); and
+    the SSL ablation's DyCON arm rerun at phase ssl_ablation's cut, its
+    validation curve, logged scalars and best checkpoint against that
+    phase's run. Then the controls, printed and not gated: _control, the
+    arm's cut rerun with the mode off against the mode-on run, and the
+    arm's UnCL beta schedule at --iters 100 and 200; and the ms per step of
+    each path under each of DET_MODES (_mode_ms)."""
+    from dycon_paper_replication_tpu_torch import parallel
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.ops.ramps import adaptive_beta
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+    from dycon_paper_replication_tpu_torch.utils import checkpoint
+
+    paths = (("pancreas", "pancreas", roots["pancreas"], []),
+             ("isles", "isles22", roots["isles"], []),
+             ("brats", "brats19", roots["brats"], []),
+             ("vnet", "pancreas", roots["pancreas"], ["--model", "vnet"]),
+             ("aspp", "pancreas", roots["pancreas"], ["--use_aspp", "1"]),
+             ("bf16", "pancreas", roots["pancreas"], ["--compute_dtype", "bfloat16"]))
+    # no validation or save within the 3 steps, and train/HD95 (seconds of host
+    # work a batch) at the first alone
+    common = ["--device", "cuda", "--max_iterations", str(DET_STEPS), "--val_every", "1000",
+              "--save_every", "1000"]
+    cost = {}
+    for tag, dataset, root, extra in paths:
+        t0, runs = time.perf_counter(), []
+        for run in range(2):
+            argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, f"det_{tag}_{run}"),
+                    *common, *extra]
+            trainer = Trainer(config_from_args(dataset, argv))
+            _check(torch.are_deterministic_algorithms_enabled(),
+                   f"determinism {tag}: the Trainer did not turn the mode on")
+            trainer.run()
+            _check(trainer.state.step == DET_STEPS,
+                   f"determinism {tag}: step {trainer.state.step}")
+            runs.append((_leaves(trainer.state), _logged(trainer.snapshot_path)))
+        _hold_identical(torch, tag, *runs)
+        cost[tag] = _mode_ms(torch, trainer)
+        print(f"determinism {tag}: {time.perf_counter() - t0:.3f} s (two runs, the cost)")
+        del trainer, runs
+
+    t0 = time.perf_counter()
+    argvs = [["--root_dir", roots["pancreas"], "--data_parallel", "2", *common,
+              "--snapshot_root", os.path.join(tmp, f"det_dp_{run}")] for run in range(2)]
+    out = parallel.launch(_det_dp_rank, 2, device="cuda", devices=[str(device)] * 2,
+                          backend="gloo", args=(argvs,), timeout=600)
+    _check([step for _, _, step in out["runs"]] == [DET_STEPS] * 2,
+           f"determinism dp2: steps {[step for _, _, step in out['runs']]}")
+    _hold_identical(torch, "dp2 (2 gloo ranks, global batch 8)",
+                    *[run[:2] for run in out["runs"]])
+    cost["dp2"] = out["ms"]
+    print(f"determinism dp2: {time.perf_counter() - t0:.3f} s (two runs, the cost)")
+    t0 = time.perf_counter()
+
+    abl = _load_ablation()
+    argv = list(ablation["argv"])
+    argv[argv.index("--work") + 1] = os.path.join(tmp, "det_ablation")
+    argv += ["--arms", "dycon", "--train_only"]
+    abl.main(argv)
+    args = [abl.build_parser().parse_args(a) for a in (ablation["argv"], argv)]
+    snapshots = [abl.arm_config(a, "dycon").snapshot_path() for a in args]
+    logged = [_logged(snap) for snap in snapshots]
+    curves = [{k: v for k, v in log.items() if k[1] in ("info/Dice", "info/Best_dice")}
+              for log in logged]
+    best = [torch.load(checkpoint.best_checkpoint_path(snap, "unet_3D"), map_location="cpu",
+                       weights_only=False) for snap in snapshots]
+    print(f"determinism ablation dycon: validation curve {sorted(curves[0].items())}, best "
+          f"checkpoint {best[0]['meta']}", flush=True)
+    _check(curves[0] == curves[1] and len(curves[0]) == 2 * ABLATION_ITERS // ABLATION_VAL_EVERY,
+           f"determinism ablation dycon: validation curves differ: {sorted(curves[1].items())}")
+    meta = [(b["meta"], b["step"]) for b in best]
+    _check(meta[0] == meta[1], f"determinism ablation dycon: best checkpoints' meta {meta}")
+    _hold_identical(torch, f"ablation dycon ({ABLATION_ITERS} iterations, best checkpoint)",
+                    (_flatten_ckpt(best[0]), logged[0]), (_flatten_ckpt(best[1]), logged[1]),
+                    n_steps=ABLATION_ITERS)
+    trainer = Trainer(abl.arm_config(args[1], "dycon"))
+    cost["ablation_dycon"] = _mode_ms(torch, trainer)
+    trainer.log.close()
+    # the arm's UnCL beta decays over the run's epochs (trainer._epoch_scalars:
+    # max_epoch from max_iterations), so a 100- and a 200-iteration run of the
+    # arm differ from its second epoch on; the sup arm gives UnCL weight 0
+    ipe = trainer.iters_per_epoch
+    last = (100 - 1) // ipe
+    betas = {iters: [adaptive_beta(e, iters // ipe + 1, trainer.cfg.beta_max,
+                                   trainer.cfg.beta_min) for e in (0, 1, last)]
+             for iters in (100, ABLATION_ITERS)}
+    print(f"determinism ablation dycon: UnCL beta at epochs 0, 1 and {last} ({ipe} iterations "
+          f"an epoch) with --iters 100: {betas[100]}, with --iters {ABLATION_ITERS}: "
+          f"{betas[ABLATION_ITERS]}", flush=True)
+    del trainer
+    print(f"determinism ablation dycon: {time.perf_counter() - t0:.3f} s (the rerun, the cost)")
+
+    t0 = time.perf_counter()
+    _control(torch, device)
+    # the longer control: the arm's cut once more with the mode off (the
+    # Trainer's call to turn it on is stubbed), against the mode-on run
+    argv[argv.index("--work") + 1] = os.path.join(tmp, "det_ablation_off")
+    torch.use_deterministic_algorithms(False)
+    with mock.patch.object(torch, "use_deterministic_algorithms", lambda *a, **k: None):
+        abl.main(argv)
+    torch.use_deterministic_algorithms(True)
+    snap = abl.arm_config(abl.build_parser().parse_args(argv), "dycon").snapshot_path()
+    path = checkpoint.best_checkpoint_path(snap, "unet_3D")
+    name, diff, n = ("(none saved)", float("nan"), 0) if not os.path.isfile(path) else \
+        _first_difference(torch, _flatten_ckpt(best[0]), _flatten_ckpt(
+            torch.load(path, map_location="cpu", weights_only=False)))
+    steps = sorted({s for (s, tag), v in _logged(snap).items() if logged[0].get((s, tag)) != v})
+    print(f"determinism control ablation dycon, {ABLATION_ITERS} iterations with the mode off "
+          f"against the mode-on run: logged scalars differ at {len(steps)} steps (first "
+          f"{steps[:1]}); best checkpoint: " + ("bit-identical" if name is None else
+                                                f"{n} tensors differ, the first {name} (max "
+                                                f"|diff| {diff})"), flush=True)
+    print(f"determinism controls: {time.perf_counter() - t0:.3f} s")
+    for tag, ms in cost.items():
+        mean = {k: statistics.mean(v) for k, v in ms.items()}
+        print(f"determinism cost {tag}: ms/step with the mode on {mean['on']:.3f}, on without "
+              f"the NaN fill {mean['on_nofill']:.3f}, off {mean['off']:.3f} "
+              f"({100 * (mean['on'] / mean['off'] - 1):+.2f} %, "
+              f"{100 * (mean['on_nofill'] / mean['off'] - 1):+.2f} % without the fill; "
+              + ", ".join(f"{k} {[round(t, 3) for t in v]}" for k, v in ms.items()) + ")",
+              flush=True)
+    return cost
 
 
 def main() -> int:
@@ -2614,6 +2923,10 @@ def main() -> int:
         t0 = time.perf_counter()
         ablation = phase_ssl_ablation(torch, tmp)
         _phase("ssl_ablation", t0)
+        t0 = time.perf_counter()
+        phase_determinism(torch, device, tmp, dict(pancreas=train["root"], isles=isles["root"],
+                                                   brats=brats["root"]), ablation)
+        _phase("determinism", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"

@@ -43,10 +43,14 @@ train/trainer.py:train): N > 1 applies the JAX trainer's multi-device rules
 (batch sizes rounded down to multiples of N, the learning rate times N);
 0, the default, is every visible device (1 on the CPU: one process)
 clamped to divide the batch and its labeled part.
-`--deterministic 0` draws the run's seed from the OS and turns on
-cudnn.benchmark (train/trainer.py; 1, the default, keeps the seed and
-turns it off); `--host_rss_exit_gb` is the host-RSS watchdog's bar (0
-turns it off).
+`--deterministic 1`, the default, keeps the seed and makes reruns
+bit-identical on the card as in the JAX package: cudnn.benchmark off,
+cudnn.deterministic on and torch.use_deterministic_algorithms(True), so an
+op with no deterministic CUDA implementation raises; cuBLAS needs
+CUBLAS_WORKSPACE_CONFIG (resolve_device). `--deterministic 0` draws the
+run's seed from the OS, turns cudnn.benchmark on and the mode off, as the
+reference's flag did (train/trainer.py). `--host_rss_exit_gb` is the
+host-RSS watchdog's bar (0 turns it off).
 `--fecl_chunk N > 0` runs FeCL over row tiles of N, through `--fecl_impl`
 "fused" (the closed-form backward, ops/fecl_fused.py, K2 on the card) or
 "chunked" (ops/dycon.py:fecl_loss_chunked); 0 is the dense FeCL.
@@ -56,7 +60,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, Sequence
+import os
+from typing import Any, MutableMapping, Sequence
 
 import torch
 
@@ -221,7 +226,9 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--exp", type=str, default=d.exp)
     p.add_argument("--model", type=str, choices=["unet_3D", "vnet"], default=d.model)
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[0, 1])
+    p.add_argument("--deterministic", type=int, default=d.deterministic, choices=[0, 1],
+                   help="1: bit-identical reruns (deterministic algorithms only); 0: an OS "
+                        "seed and cudnn.benchmark")
     p.add_argument("--in_ch", type=int, default=d.in_ch)
     p.add_argument("--num_classes", type=int, default=d.num_classes)
     p.add_argument("--feature_scaler", type=int, default=d.feature_scaler)
@@ -278,10 +285,50 @@ def config_from_args(dataset: str, argv: Sequence[str] | None = None) -> TrainCo
     return make_config(dataset, **kw)
 
 
+# the CUBLAS_WORKSPACE_CONFIG values under which cuBLAS gives bit-identical
+# results run to run (the cuBLAS guide's "Results reproducibility"); the
+# first is the one resolve_device sets
+CUBLAS_DETERMINISTIC = (":4096:8", ":16:8")
+_cublas_set_late = False  # resolve_device set it after CUDA had started
+
+
+def set_cublas_workspace(env: MutableMapping[str, str], cuda_started: bool) -> bool:
+    """Set CUBLAS_WORKSPACE_CONFIG in `env` to CUBLAS_DETERMINISTIC[0]
+    unless it holds a value already, which is kept. Returns whether it was
+    set here after CUDA had started (`cuda_started`): a cuBLAS handle made
+    before then keeps the workspace it was made with."""
+    if "CUBLAS_WORKSPACE_CONFIG" in env:
+        return False
+    env["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC[0]
+    return cuda_started
+
+
+def require_deterministic_cublas(env: MutableMapping[str, str] = os.environ) -> None:
+    """Raise unless cuBLAS is deterministic in this process:
+    CUBLAS_WORKSPACE_CONFIG holds one of CUBLAS_DETERMINISTIC, and not
+    because resolve_device set it after CUDA had started."""
+    value = env.get("CUBLAS_WORKSPACE_CONFIG")
+    if value not in CUBLAS_DETERMINISTIC:
+        raise RuntimeError(f"deterministic=1 needs CUBLAS_WORKSPACE_CONFIG set to one of "
+                           f"{CUBLAS_DETERMINISTIC} before the first cuBLAS call; it is {value!r}")
+    if _cublas_set_late:
+        raise RuntimeError("deterministic=1: CUBLAS_WORKSPACE_CONFIG was set after CUDA had "
+                           "started in this process, so a cuBLAS handle made earlier may run "
+                           "nondeterministically; export CUBLAS_WORKSPACE_CONFIG="
+                           f"{CUBLAS_DETERMINISTIC[0]} before the process starts, or call "
+                           "resolve_device before any CUDA work")
+
+
 def resolve_device(device: torch.device | str = "cuda") -> torch.device:
-    """The torch device for an entry point. Raises when CUDA is asked for
-    and missing. On CUDA it turns TF32 off for matmuls and cuDNN convs: the
-    port's float32 path is full float32, as its reference numerics are."""
+    """The torch device for an entry point, which calls it first. Raises
+    when CUDA is asked for and missing. It sets CUBLAS_WORKSPACE_CONFIG
+    (set_cublas_workspace; inherited by the ranks a data-parallel run
+    spawns), which cuBLAS reads when it makes a handle. On CUDA it turns
+    TF32 off for matmuls and cuDNN convs: the port's float32 path is full
+    float32, as its reference numerics are."""
+    global _cublas_set_late
+    if set_cublas_workspace(os.environ, torch.cuda.is_initialized()):
+        _cublas_set_late = True
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

@@ -14,10 +14,18 @@ import torch
 import torch.nn.functional as F
 
 
+def pick_label(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logp (..., C) at each voxel's label (...), as gather would pick it,
+    by a where over the classes: its backward is elementwise. gather's is
+    a scatter_add_, which torch.use_deterministic_algorithms runs on CUDA as
+    a sorted index_put_ (scripts/time_determinism_ops.py)."""
+    hit = labels[..., None].long() == torch.arange(logp.shape[-1], device=logp.device)
+    return torch.where(hit, logp, 0.0).sum(dim=-1)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over all voxels; labels are class indices."""
-    logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, labels[..., None].long()).mean()
+    return -pick_label(F.log_softmax(logits, dim=-1), labels).mean()
 
 
 def no_reduce(t: torch.Tensor) -> torch.Tensor:
@@ -97,7 +105,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
                alpha: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-class focal loss, mean-reduced: logits (..., C), integer labels
     (...), `alpha` optional (C,) class weights; no gradient through p_t."""
-    logpt = F.log_softmax(logits, dim=-1).gather(-1, labels[..., None].long())[..., 0]
+    logpt = pick_label(F.log_softmax(logits, dim=-1), labels)
     pt = logpt.detach().exp()
     if alpha is not None:
         logpt = logpt * torch.as_tensor(alpha, dtype=logits.dtype,

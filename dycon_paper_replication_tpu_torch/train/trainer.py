@@ -31,9 +31,16 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
     or a path), and two clean, resumable stops: `time_budget_s`, and the
     host-RSS watchdog (every 20 iterations, `host_rss_exit_gb`);
   * a copy of the port's package in <snapshot>/code (without the kernel
-    build directory), and `deterministic=0`: a seed drawn from the OS,
-    logged, with cudnn.benchmark on and cudnn.deterministic off, as the
-    reference's flag did (`deterministic=1` sets them the other way).
+    build directory);
+  * `deterministic=1` (the default): the configured seed, cudnn.benchmark
+    off, cudnn.deterministic on and torch.use_deterministic_algorithms(True)
+    in its error mode, and on CUDA a deterministic CUBLAS_WORKSPACE_CONFIG
+    (config.require_deterministic_cublas), so that reruns are bit-identical
+    on the card as they are in the JAX package; an op with no deterministic
+    implementation raises. `deterministic=0`: a seed drawn from the OS,
+    logged, with cudnn.benchmark on, cudnn.deterministic off and the mode
+    off, as the reference's flag did. All three are process-wide and set on
+    both branches.
 A NaN/Inf step is skipped as the reference's `continue`: it advances
 neither the iteration count nor any cadence.
 
@@ -67,7 +74,7 @@ import numpy as np
 import torch
 
 from .. import parallel, weights
-from ..config import TrainConfig, resolve_device
+from ..config import TrainConfig, require_deterministic_cublas, resolve_device
 from ..data import (
     BatchLoader,
     BraTS2019,
@@ -169,6 +176,9 @@ class Trainer:
         # after a deterministic=0 one in the same process is deterministic
         torch.backends.cudnn.benchmark = not cfg.deterministic
         torch.backends.cudnn.deterministic = bool(cfg.deterministic)
+        torch.use_deterministic_algorithms(bool(cfg.deterministic))
+        if cfg.deterministic and self.device.type == "cuda":
+            require_deterministic_cublas()
         self.cfg = cfg
         self.snapshot_path = cfg.snapshot_path()
         self.log = _Quiet()
@@ -466,6 +476,7 @@ def train(cfg: TrainConfig, **launch_kwargs) -> float:
     otherwise `data_parallel` N > 0 (or 0 on several visible devices)
     spawns the ranks (parallel.launch; `launch_kwargs` reach it: `devices`,
     `backend`, `threads`, `timeout`). Returns the best validation Dice."""
+    resolve_device(cfg.device)  # before any CUDA work; spawned ranks inherit its environment
     env = parallel.from_env()
     if env is not None:
         rank, world, local = env

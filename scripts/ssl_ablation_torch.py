@@ -45,7 +45,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from dycon_paper_replication_tpu_torch.cli import test_pancreas  # noqa: E402
-from dycon_paper_replication_tpu_torch.config import make_config  # noqa: E402
+from dycon_paper_replication_tpu_torch.config import make_config, resolve_device  # noqa: E402
 from dycon_paper_replication_tpu_torch.data.synthetic import make_hard_pancreas  # noqa: E402
 from dycon_paper_replication_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -125,6 +125,7 @@ def train_arm(args, arm: str) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    resolve_device(args.device)  # CUBLAS_WORKSPACE_CONFIG before the first CUDA call
     if not os.path.exists(os.path.join(args.root, "train.list")):
         print("generating hard dataset ...", flush=True)
         make_hard_pancreas(args.root, n_train=args.n_train, n_test=args.n_test,

@@ -22,9 +22,13 @@
     negative data_parallel refused); train-HD95 scored on its worker thread while the loop goes
     on, each score logged at its own iteration and equal to the score of
     that step's mask; a NaN step advances neither the iteration nor the
-    cadence; deterministic=0 draws and logs a seed and turns
-    cudnn.benchmark on, deterministic=1 after it keeps the configured seed
-    and turns it off; the code snapshot holds the package without the
+    cadence; deterministic=1 turns torch.use_deterministic_algorithms on,
+    deterministic=0 draws and logs a seed, turns cudnn.benchmark on and the
+    mode off, deterministic=1 after it keeps the configured seed and turns
+    benchmark off and the mode on; resolve_device sets
+    CUBLAS_WORKSPACE_CONFIG unless the user did, and the deterministic
+    trainer's cuBLAS check refuses a nondeterministic or late value; the
+    code snapshot holds the package without the
     kernel build directory; the host-RSS watchdog saves a resumable
     checkpoint and stops.
 """
@@ -299,25 +303,71 @@ def test_nan_skip_advances_no_cadence(tmp_path):
 
 
 def test_deterministic_flag(tmp_path, monkeypatch):
-    """deterministic=0 draws a seed and turns cudnn.benchmark on; a
-    deterministic=1 trainer built after it in the same process keeps the
-    configured seed and turns benchmark off and cudnn.deterministic on."""
+    """deterministic=1 turns torch.use_deterministic_algorithms on;
+    deterministic=0 draws a seed, turns cudnn.benchmark on and the mode off;
+    a deterministic=1 trainer built after it in the same process keeps the
+    configured seed, turns benchmark off, cudnn.deterministic on and the
+    mode back on, in its error mode."""
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
-    drawn = ttrainer.Trainer(tconfig.config_from_args("pancreas",
-                                                      _argv(tmp_path, "--deterministic", "0")))
-    drawn.log.close()
-    assert drawn.cfg.deterministic == 0 and torch.backends.cudnn.benchmark
-    assert not torch.backends.cudnn.deterministic
-    log = open(os.path.join(drawn.snapshot_path, "log.txt")).read()
-    assert f"deterministic=0: seed drawn from OS entropy -> {drawn.cfg.seed}" in log
-    assert json.load(open(os.path.join(drawn.snapshot_path, "config.json")))["seed"] == str(
-        drawn.cfg.seed)
-    assert drawn.cfg.seed != 1337  # 2^-32 odds of a false failure
-    kept = ttrainer.Trainer(tconfig.config_from_args("pancreas", _argv(tmp_path)))
-    kept.log.close()
-    assert kept.cfg.seed == 1337 and not torch.backends.cudnn.benchmark
-    assert torch.backends.cudnn.deterministic
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    try:
+        torch.use_deterministic_algorithms(False)
+        first = ttrainer.Trainer(tconfig.config_from_args("pancreas", _argv(tmp_path)))
+        first.log.close()
+        assert first.cfg.seed == 1337 and torch.are_deterministic_algorithms_enabled()
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+        drawn = ttrainer.Trainer(tconfig.config_from_args(
+            "pancreas", _argv(tmp_path, "--deterministic", "0")))
+        drawn.log.close()
+        assert drawn.cfg.deterministic == 0 and torch.backends.cudnn.benchmark
+        assert not torch.backends.cudnn.deterministic
+        assert not torch.are_deterministic_algorithms_enabled()
+        log = open(os.path.join(drawn.snapshot_path, "log.txt")).read()
+        assert f"deterministic=0: seed drawn from OS entropy -> {drawn.cfg.seed}" in log
+        assert json.load(open(os.path.join(drawn.snapshot_path, "config.json")))["seed"] == str(
+            drawn.cfg.seed)
+        assert drawn.cfg.seed != 1337  # 2^-32 odds of a false failure
+        kept = ttrainer.Trainer(tconfig.config_from_args("pancreas", _argv(tmp_path)))
+        kept.log.close()
+        assert kept.cfg.seed == 1337 and not torch.backends.cudnn.benchmark
+        assert torch.backends.cudnn.deterministic
+        assert torch.are_deterministic_algorithms_enabled()
+        assert not torch.is_deterministic_algorithms_warn_only_enabled()
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+
+
+@pytest.mark.parametrize("preset,cuda_started,want,late", [
+    (None, False, ":4096:8", False),  # set before CUDA starts: deterministic
+    (":16:8", False, ":16:8", False),  # a deterministic value of the user's, kept
+    (":0:0", False, ":0:0", False),  # another of the user's: kept, refused at deterministic=1
+    (None, True, ":4096:8", True),  # set after CUDA started: refused at deterministic=1
+])
+def test_cublas_workspace_config(monkeypatch, preset, cuda_started, want, late):
+    """resolve_device sets CUBLAS_WORKSPACE_CONFIG to :4096:8 unless the
+    user set it, whose value it keeps; require_deterministic_cublas (the
+    deterministic=1 trainer's check on CUDA) refuses a value that is not
+    deterministic, and one set after CUDA had started. The environment
+    logic alone, with no CUDA: torch.cuda.is_initialized is stubbed."""
+    if preset is None:
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    else:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", preset)
+    monkeypatch.setattr(tconfig, "_cublas_set_late", False)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: cuda_started)
+    assert tconfig.resolve_device("cpu") == torch.device("cpu")
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == want
+    assert tconfig._cublas_set_late == late
+    if want in tconfig.CUBLAS_DETERMINISTIC and not late:
+        tconfig.require_deterministic_cublas()
+    else:
+        with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+            tconfig.require_deterministic_cublas()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":16:8"}
+    assert not tconfig.set_cublas_workspace(env, cuda_started=True)
+    assert env == {"CUBLAS_WORKSPACE_CONFIG": ":16:8"}
 
 
 def test_code_snapshot_leaves_out_the_build(tmp_path):
