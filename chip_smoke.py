@@ -11,8 +11,10 @@ training and evaluation and ASPP's (`--use_aspp 1`) training, bf16
 compute (`--compute_dtype bfloat16`) of both families, each through its
 CLI, and then volume groups with pipelined evaluation, data-parallel
 training, the preprocess CLIs, the JAX package's trained Pancreas
-checkpoint's test and the SSL ablation, and last every training path
-twice, whose reruns must be bit-identical.
+checkpoint's test and the SSL ablation, every training path twice, whose
+reruns must be bit-identical, and last the host loop's settings (the
+pipelined loop against the synchronous one, gradient rematerialisation,
+the narrow wire dtypes).
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -241,7 +243,29 @@ Phases, each timed on its own line:
      against the mode-on run, the arm's UnCL beta at --iters 100 and 200,
      and each path's ms per step with the mode on, on without its NaN fill
      of uninitialised memory, and off (phase_determinism says each);
- 40. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 40. host_loop: the BraTS trainer at its defaults (patch 96^3, batch 8 of
+     which 4 labeled), HOST_LOOP_ITERS iterations from one seed at
+     --fetch_ahead 0, 1, 1 and 0 (1 is the default), must end torch.equal in
+     the student, the teacher, the momentum, every running stat and the
+     step, with every step dispatched under
+     torch.cuda.set_sync_debug_mode("error") (a host read inside the step
+     raises, as far as the mode detects one); printed, not gated: ms per
+     iteration of the loop, a dispatch's host time, the median device span
+     of a step and the device's idle share between steps (CUDA events),
+     for BraTS, the bf16 VNet (Pancreas defaults) and the SSL ablation's
+     DyCON arm at its cut (phase_host_loop says each);
+ 41. remat: one full-width Pancreas float32 step (_seeded_case) with
+     --remat full against none from one state: the loss within rtol 1e-6,
+     every parameter within 1e-6, every running stat torch.equal, the
+     dropout generator left in the same state, and a lower peak of
+     torch.cuda.max_memory_allocated; the same for one VNet step (31
+     BatchNorms), and for one bf16 UNet3D step at the bf16 gate (each leaf
+     within 2 x the leaf's |bf16 - float32| of the step without remat);
+     both ms per step and both peaks printed;
+ 42. wire: one trainer step at --wire_dtype float16: the batch on the card
+     is float16 and uint8, and bit-equal to the float32 batch of the same
+     loader settings rounded to float16 (labels equal);
+ 43. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
@@ -366,6 +390,14 @@ def _phase(name, t0):
 def _check(ok, msg):
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def _wrap_steps(trainer, wrap):
+    """Replace a Trainer's full step and its light one (step_diagnostics
+    "cadence"; the same function under "always") by wrap(step)."""
+    full, light = trainer.train_step, trainer.train_step_light
+    trainer.train_step = wrap(full)
+    trainer.train_step_light = trainer.train_step if light is full else wrap(light)
 
 
 def _time_ms(torch, fn, reps=REPS):
@@ -942,22 +974,26 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag, n_steps=TRAIN_STEP
 
     def trainer_for(extra):
         trainer = Trainer(config_from_args(dataset, argv + extra))
-        step, validate = trainer.train_step, trainer.validate
+        validate = trainer.validate
 
-        def counted_step(*args, **kwargs):
-            for c in counters.values():
-                c.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(*args, **kwargs)
-            vec, diags[:] = out[0], [out[1]]
-            vals = vec.tolist()
-            ms = (time.perf_counter() - t0) * 1e3
-            row = dict(**{k: c.launches for k, c in counters.items()}, ms=ms,
-                       **dict(zip(SCALAR_METRICS, vals)))
-            steps.append(row)
-            print(tag, "step", json.dumps(row), flush=True)
-            return out
+        def counted(step):
+            def counted_step(*args, **kwargs):
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args, **kwargs)
+                vec = out[0]
+                if out[1]:  # a full step's diagnostic outputs
+                    diags[:] = [out[1]]
+                vals = vec.tolist()
+                ms = (time.perf_counter() - t0) * 1e3
+                row = dict(**{k: c.launches for k, c in counters.items()}, ms=ms,
+                           **dict(zip(SCALAR_METRICS, vals)))
+                steps.append(row)
+                print(tag, "step", json.dumps(row), flush=True)
+                return out
+            return counted_step
 
         def timed_validate():
             t0 = time.perf_counter()
@@ -967,7 +1003,8 @@ def _drive_trainer(torch, dataset, argv, counters, want, tag, n_steps=TRAIN_STEP
             print(f"{tag} validation: dice {dice}, {val_s[-1]:.3f} s", flush=True)
             return dice
 
-        trainer.train_step, trainer.validate = counted_step, timed_validate
+        _wrap_steps(trainer, counted)
+        trainer.validate = timed_validate
         return trainer
 
     torch.cuda.reset_peak_memory_stats()
@@ -2352,20 +2389,22 @@ def phase_ssl_ablation(torch, tmp):
     class CountedTrainer(abl.Trainer):
         def __init__(self, cfg, *args, **kwargs):
             super().__init__(cfg, *args, **kwargs)
-            rows, step = steps[cfg.exp.removeprefix("hard_")], self.train_step
+            rows = steps[cfg.exp.removeprefix("hard_")]
 
-            def counted_step(*a, **k):
-                for c in counters.values():
-                    c.launches = 0
-                t0 = time.perf_counter()
-                out = step(*a, **k)
-                vals = out[0].tolist()
-                rows.append(dict(**{n: c.launches for n, c in counters.items()},
-                                 ms=(time.perf_counter() - t0) * 1e3,
-                                 **dict(zip(SCALAR_METRICS, vals))))
-                return out
+            def counted(step):
+                def counted_step(*a, **k):
+                    for c in counters.values():
+                        c.launches = 0
+                    t0 = time.perf_counter()
+                    out = step(*a, **k)
+                    vals = out[0].tolist()
+                    rows.append(dict(**{n: c.launches for n, c in counters.items()},
+                                     ms=(time.perf_counter() - t0) * 1e3,
+                                     **dict(zip(SCALAR_METRICS, vals))))
+                    return out
+                return counted_step
 
-            self.train_step = counted_step
+            _wrap_steps(self, counted)
 
     real_test, real_restore = abl.test_pancreas.main, checkpoint.restore_checkpoint
 
@@ -2496,14 +2535,11 @@ def _mode_ms(torch, trainer):
     steps each, the timed ones returned. Leaves the mode on, and the fill."""
     import torch.utils.deterministic
 
-    from dycon_paper_replication_tpu_torch import parallel
     from dycon_paper_replication_tpu_torch.train.step import StepScalars
 
     epochs = trainer.loader.epochs(1)
-    _, batch = next(epochs)
+    _, batch = next(epochs)  # this rank's rows, on the card (data/pipeline.py)
     epochs.close()
-    batch = {k: torch.from_numpy(v).to(trainer.device)
-             for k, v in parallel.shard_batch(trainer.shard, batch).items()}
     beta, pos, neg = trainer._epoch_scalars(0)
     scalars = StepScalars(beta, trainer._consistency_weight(0), pos, neg)
     gen = torch.Generator(device=trainer.device).manual_seed(SEED)
@@ -2542,7 +2578,7 @@ def _det_dp_rank(rank, world, device, argvs):
         trainer = Trainer(cfg, rank, world)
         trainer.run()
         runs.append((_leaves(trainer.state), _logged(trainer.snapshot_path) if rank == 0 else None,
-                     trainer.state.step))
+                     int(trainer.state.step)))
     return dict(runs=runs, ms=_mode_ms(torch, trainer))
 
 
@@ -2712,6 +2748,247 @@ def phase_determinism(torch, device, tmp, roots, ablation):
               + ", ".join(f"{k} {[round(t, 3) for t in v]}" for k, v in ms.items()) + ")",
               flush=True)
     return cost
+
+
+HOST_LOOP_ITERS = dict(brats=32, vnet_bf16=24, ablation_dycon=24)  # a run of phase host_loop
+HOST_LOOP_ORDER = (0, 1, 1, 0)  # the fetch_ahead settings' runs, in turn, in one process
+HOST_LOOP_WARM = 4  # left out of its timings: the first (synchronous, train-HD95) and warm-up
+
+
+def _host_loop_run(torch, cfg, sync_debug):
+    """One Trainer run of `cfg`, each step (full or light) dispatched between
+    two CUDA events, under torch.cuda.set_sync_debug_mode("error") with
+    `sync_debug`. Returns its state's leaves, its step, and timings over the
+    iterations after HOST_LOOP_WARM: ms per iteration of the loop (the
+    median interval between dispatches on the host's clock), the median
+    host time of a dispatch (the step call), the median device span of a
+    step (from the event before its first kernel to the one after its
+    last), the StepTimer's p50 (dispatch to the read of the scalars), and
+    the device's idle share between steps (the sum of the gaps from one
+    step's end event to the next one's start event, over the span from the
+    first start to the last end)."""
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    marks = []
+
+    def timed(step):
+        def timed_step(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            if sync_debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                out = step(*args, **kwargs)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            marks.append((t, start, end, time.perf_counter() - t))
+            return out
+        return timed_step
+
+    _wrap_steps(trainer, timed)
+    trainer.run()
+    torch.cuda.synchronize()
+    steady = marks[HOST_LOOP_WARM:]
+    span = steady[0][1].elapsed_time(steady[-1][2])
+    gaps = [a[2].elapsed_time(b[1]) for a, b in zip(steady, steady[1:])]
+    return dict(state=_leaves(trainer.state), step=int(trainer.state.step), dispatched=len(marks),
+                ms_iter=statistics.median((b[0] - a[0]) * 1e3 for a, b in zip(steady, steady[1:])),
+                dispatch_ms=statistics.median(m[3] * 1e3 for m in steady),
+                step_ms=statistics.median(m[1].elapsed_time(m[2]) for m in steady),
+                timer_p50=trainer.timer.stats().get("step_ms_p50", float("nan")),
+                idle=sum(gaps) / span)
+
+
+def phase_host_loop(torch, tmp, roots, ablation):
+    """The pipelined host loop on the card (module doc, phase 40): each path
+    run HOST_LOOP_ITERS iterations from one seed at the fetch_ahead settings
+    of HOST_LOOP_ORDER in turn (0, 1, 1, 0: a drift over the phase shows as
+    a difference between the two runs of one setting), without validation
+    or saves inside a run (train-HD95 at the first iteration alone:
+    hd95_every is 250), each step dispatched under the sync debug mode.
+    Gate: BraTS's runs all torch.equal (state and step). Printed: each
+    run's timings (_host_loop_run), each setting's mean over its two runs,
+    and whether the bf16 VNet's and the ablation arm's runs are all equal
+    too."""
+    import dataclasses
+
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+
+    abl = _load_ablation()
+    arm = abl.arm_config(abl.build_parser().parse_args(ablation["argv"]), "dycon")
+    common = ["--device", "cuda", "--val_every", "1000", "--save_every", "1000"]
+    paths = (("brats", lambda n, fa, snap: config_from_args("brats19", [
+                 "--root_dir", roots["brats"], "--snapshot_root", snap, *common,
+                 "--max_iterations", str(n), "--fetch_ahead", str(fa)])),
+             ("vnet_bf16", lambda n, fa, snap: config_from_args("pancreas", [
+                 "--root_dir", roots["pancreas"], "--snapshot_root", snap, *common,
+                 "--max_iterations", str(n), "--model", "vnet", "--compute_dtype", "bfloat16",
+                 "--fetch_ahead", str(fa)])),
+             ("ablation_dycon", lambda n, fa, snap: dataclasses.replace(
+                 arm, snapshot_root=snap, max_iterations=n, val_every=1000, save_every=1000,
+                 fetch_ahead=fa)))
+    out = {}
+    for tag, make in paths:
+        n = HOST_LOOP_ITERS[tag]
+        runs = []
+        for i, fa in enumerate(HOST_LOOP_ORDER):
+            r = _host_loop_run(torch, make(n, fa, os.path.join(tmp, f"host_loop_{tag}_{i}")),
+                               sync_debug=True)
+            print(f"host_loop {tag} run {i}, fetch_ahead {fa}: {r['ms_iter']:.3f} ms per "
+                  f"iteration of the loop, dispatch {r['dispatch_ms']:.3f} ms on the host, step "
+                  f"device span {r['step_ms']:.3f} ms (medians), StepTimer p50 "
+                  f"{r['timer_p50']:.3f} ms, device idle between steps {r['idle']:.4f}; "
+                  f"{r['dispatched']} steps dispatched under the sync debug mode, step "
+                  f"{r['step']}", flush=True)
+            runs.append((fa, r))
+        first = runs[0][1]
+        differ = [(i, *_first_difference(torch, first["state"], r["state"]))
+                  for i, (_, r) in enumerate(runs) if i]
+        differ = [d for d in differ if d[1] is not None]
+        steps = [r["step"] for _, r in runs]
+        equal = not differ and steps == [n] * len(runs)
+        if tag == "brats":
+            _check(equal, f"host_loop {tag}: the runs differ: steps {steps}, "
+                   f"(run, first tensor, max |diff|, tensors) {differ[:2]}")
+        mean = {fa: {k: statistics.mean(r[k] for f, r in runs if f == fa)
+                     for k in ("ms_iter", "dispatch_ms", "step_ms", "idle")}
+                for fa in dict.fromkeys(HOST_LOOP_ORDER)}
+        print(f"host_loop {tag}: the {len(runs)} runs (fetch_ahead {list(HOST_LOOP_ORDER)}) "
+              + ("torch.equal" if equal else f"differ: steps {steps}, {differ[:2]}")
+              + "; means per setting: " + json.dumps(mean)
+              + f"; ms per iteration {mean[1]['ms_iter'] / mean[0]['ms_iter'] - 1:+.2%} at 1",
+              flush=True)
+        out[tag] = dict(mean=mean, runs=[(fa, {k: v for k, v in r.items() if k != "state"})
+                                         for fa, r in runs])
+    return out
+
+
+def phase_remat(torch, device):
+    """--remat full against none on one full-width step (module doc, phase
+    41). The yardstick of the bf16 gate is the float32 step's: for each
+    parameter leaf, max |bf16 full - bf16 none| <= 2 x max |bf16 none -
+    float32 none| (PERF.md section 2's bf16 model gate)."""
+    import dataclasses
+
+    from dycon_paper_replication_tpu_torch.config import make_config
+    from dycon_paper_replication_tpu_torch.models import build_model
+    from dycon_paper_replication_tpu_torch.train.state import create_train_state
+    from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
+
+    scalars = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
+    unet = _seeded_case("unet_3D")
+    cases = (("pancreas", unet, "float32"), ("vnet", _seeded_case("vnet"), "float32"),
+             ("pancreas_bf16", dict(unet, net_cfg=dataclasses.replace(
+                 unet["net_cfg"], compute_dtype=torch.bfloat16)), "bfloat16"))
+    results = {}
+    for tag, case, dtype in cases:
+        batch = {k: torch.from_numpy(v).to(device) for k, v in case["batch"].items()}
+        for remat in ("none", "full"):
+            cfg = make_config("pancreas", model=case["model"], batch_size=TRAIN_BATCH,
+                              labeled_bs=TRAIN_BATCH // 2, patch_size=TRAIN_PATCH,
+                              device=str(device), remat=remat, compute_dtype=dtype)
+            step = build_train_step(cfg, lambda s: cfg.base_lr)
+            for rep in range(2):  # the first warms up
+                student = build_model(case["net_cfg"])
+                student.load_state_dict(case["state"])
+                state = create_train_state(student.to(device))
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                vec, _ = step(state, batch, gen, scalars)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            results[tag, remat] = dict(loss=float(vec[0]), skipped=float(vec[-1]), ms=ms,
+                                       peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                       leaves=_leaves(state), gen=gen.get_state())
+            del state, student
+        none, full = results[tag, "none"], results[tag, "full"]
+        params = [k for k in none["leaves"] if not k.startswith("momentum.")
+                  and not k.endswith((".mean", ".var"))]
+        stats = [k for k in none["leaves"] if k.endswith((".mean", ".var"))]
+        diff = {k: float((full["leaves"][k].double() - none["leaves"][k].double()).abs().max())
+                for k in params}
+        worst = max(diff, key=diff.get)
+        print(f"remat {tag}: loss {none['loss']!r} (none) / {full['loss']!r} (full), "
+              f"{none['ms']:.3f} / {full['ms']:.3f} ms per step, peak "
+              f"{none['peak']:.3f} / {full['peak']:.3f} GiB, largest parameter difference "
+              f"{diff[worst]} ({worst}), {len(stats)} running stats", flush=True)
+        _check(not none["skipped"] and not full["skipped"], f"remat {tag}: a step was skipped")
+        _check(all(torch.equal(full["leaves"][k], none["leaves"][k]) for k in stats),
+               f"remat {tag}: the running stats differ")
+        _check(torch.equal(full["gen"], none["gen"]),
+               f"remat {tag}: the generator's state after the step differs")
+        _check(full["peak"] < none["peak"], f"remat {tag}: peak {full['peak']} GiB with remat "
+               f"is not below {none['peak']} GiB")
+        if dtype == "float32":
+            _check(abs(full["loss"] - none["loss"]) <= 1e-6 * abs(none["loss"]),
+                   f"remat {tag}: loss {full['loss']} vs {none['loss']}")
+            _check(diff[worst] <= 1e-6, f"remat {tag}: {worst} differs by {diff[worst]}")
+        else:
+            f32 = results["pancreas", "none"]["leaves"]
+            over = [k for k in params if diff[k] > 2 * float(
+                (none["leaves"][k].double() - f32[k].double()).abs().max())]
+            loss_yard = abs(none["loss"] - results["pancreas", "none"]["loss"])
+            _check(not over and abs(full["loss"] - none["loss"]) <= 2 * loss_yard,
+                   f"remat {tag}: over the bf16 gate: {over[:4]}, loss {full['loss']} vs "
+                   f"{none['loss']} (yardstick {loss_yard})")
+    return {k: {n: v for n, v in r.items() if n not in ("leaves", "gen")}
+            for k, r in results.items()}
+
+
+def phase_wire(torch, tmp, root):
+    """One Pancreas trainer step at --wire_dtype float16 (module doc, phase
+    42): the batch the step gets is float16 and uint8 on the card, bit-equal
+    to the float32 / int32 batch of a loader with the trainer's settings at
+    --wire_dtype float32, rounded to float16."""
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.data import BatchLoader, TwoStreamBatchSampler
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+
+    cfg = config_from_args("pancreas", [
+        "--root_dir", root, "--snapshot_root", os.path.join(tmp, "wire"), "--device", "cuda",
+        "--max_iterations", "1", "--val_every", "1000", "--save_every", "1000",
+        "--wire_dtype", "float16"])
+    trainer = Trainer(cfg)
+    seen = []
+
+    def recorded(step):
+        def recorded_step(state, batch, *args, **kwargs):
+            seen.append({k: v.clone() for k, v in batch.items()})
+            out = step(state, batch, *args, **kwargs)
+            seen[-1]["vec"] = out[0].clone()
+            return out
+        return recorded_step
+
+    _wrap_steps(trainer, recorded)
+    trainer.run()
+    got = seen[0]
+    ds = trainer.loader.dataset
+    sampler = TwoStreamBatchSampler(range(cfg.labelnum), range(cfg.labelnum, len(ds)),
+                                    cfg.batch_size, cfg.batch_size - cfg.labeled_bs, seed=cfg.seed)
+    wide_loader = BatchLoader(ds, sampler, seed=cfg.seed, prefetch=cfg.num_prefetch,
+                              device=trainer.device)
+    epochs = wide_loader.epochs(1)
+    _, wide = next(epochs)
+    epochs.close()
+    torch.cuda.synchronize()
+    print(f"wire: the step's batch {got['image'].dtype} {tuple(got['image'].shape)} and "
+          f"{got['label'].dtype} on {got['image'].device}; the float32 loader's "
+          f"{wide['image'].dtype} and {wide['label'].dtype}; loss {float(got['vec'][0])}",
+          flush=True)
+    _check(got["image"].dtype == torch.float16 and got["label"].dtype == torch.uint8
+           and got["image"].is_cuda and wide["image"].dtype == torch.float32
+           and wide["label"].dtype == torch.int32, "wire: the batches' dtypes")
+    _check(torch.equal(got["image"].view(torch.int16), wide["image"].half().view(torch.int16))
+           and torch.equal(got["label"].long(), wide["label"].long()),
+           "wire: the float16 batch is not the float32 batch rounded to float16")
+    _check(math.isfinite(float(got["vec"][0])) and not float(got["vec"][-1]),
+           "wire: the step's loss")
 
 
 def main() -> int:
@@ -2927,6 +3204,15 @@ def main() -> int:
         phase_determinism(torch, device, tmp, dict(pancreas=train["root"], isles=isles["root"],
                                                    brats=brats["root"]), ablation)
         _phase("determinism", t0)
+        t0 = time.perf_counter()
+        phase_host_loop(torch, tmp, dict(pancreas=train["root"], brats=brats["root"]), ablation)
+        _phase("host_loop", t0)
+        t0 = time.perf_counter()
+        phase_remat(torch, device)
+        _phase("remat", t0)
+        t0 = time.perf_counter()
+        phase_wire(torch, tmp, train["root"])
+        _phase("wire", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"

@@ -4,11 +4,16 @@ Counterpart of dycon_paper_replication_tpu/config.py: `TrainConfig`,
 `DATASET_DEFAULTS`, `make_config` and `snapshot_path`, with the same field
 names and defaults so checkpoints are addressed by the same run directory.
 
-Fields dropped from the JAX config, by decision:
-  * `remat` (gradient rematerialisation) and `wire_dtype` (the host->TPU
-    transfer dtype) exist for the TPU's 16 GB HBM and its slow host link;
-    the H100's 80 GB hold a Pancreas step without recomputation.
-Field added: `device` ("cuda" or "cpu"), the torch device of a run.
+Every field of the JAX config is here, with its default; one is added:
+`device` ("cuda" or "cpu"), the torch device of a run. The host loop's
+fields take the JAX trainer's meaning (train/trainer.py): `fetch_ahead` 1
+queues iteration N+1 before it reads iteration N's scalars,
+`step_diagnostics` "cadence" runs the light step off the train-HD95 and
+monitor iterations, `remat` "full" recomputes the student forward in the
+backward pass (train/step.py), and `wire_dtype` is the dtype of the batch
+the loader copies to the device: "auto" is float32 image and int32 label
+(the JAX package narrows it only on a TPU), "float16" a float16 image and
+a uint8 label, widened on the device (data/pipeline.py).
 `layout="auto"` resolves against the torch device: "folded" for unet_3D and
 vnet on CUDA, where the fold-2 conv is the hand-written kernel K1, and
 "NDHWC" elsewhere. `--layout NCDHW` is accepted as an alias of "NDHWC" in
@@ -24,20 +29,12 @@ takes unet_3D and vnet; `--use_aspp 1` puts ASPP on the UNet3D's
 bottleneck (the VNet takes none, as in the JAX factory). Snapshot paths and
 checkpoint names follow the model (VNET_..., vnet_best_model.pt).
 
-`build_parser` / `config_from_args` take the JAX package's flag names for
-what the port's trainer implements, plus `--device`, for the three datasets
-("pancreas", "brats19", "isles22"). Refused by argparse rather than accepted
-and ignored:
-  * --remat and --wire_dtype (dropped above), and the reference's
-    --gpu_ids / --use_ddp, which do nothing in the JAX package either; the
-    device is --device, so --gpu_id is refused too;
-  * --fetch_ahead, the JAX trainer's deferred scalar fetch. It hides the
-    round trip of the TPU's host link behind the next step; on the card the
-    device is idle for 0.025 (ISLES), 0.029 (BraTS) and 0.033 (Pancreas) of
-    a step (PERF.md section 5), so there is little for it to hide;
-  * --step_diagnostics, which picks the JAX step's light or full program:
-    the port's one eager step returns its diagnostic outputs every time
-    (train/step.py).
+`build_parser` / `config_from_args` take every flag of the JAX package's
+train parser, with its default, plus `--device`, for the three datasets
+("pancreas", "brats19", "isles22"), but three: the reference's --gpu_ids
+and --use_ddp, which do nothing in the JAX package either, and --gpu_id,
+since the device is --device. Those are refused by argparse rather than
+accepted and ignored.
 `--data_parallel N` runs N ranks, one process each (parallel/mesh.py,
 train/trainer.py:train): N > 1 applies the JAX trainer's multi-device rules
 (batch sizes rounded down to multiples of N, the learning rate times N);
@@ -135,7 +132,10 @@ class TrainConfig:
     resume: str = ""
     time_budget_s: float = 0.0
     host_rss_exit_gb: float = 100.0
-    fetch_ahead: int = 1
+    fetch_ahead: int = 1  # 0 | 1
+    step_diagnostics: str = "cadence"  # always | cadence
+    remat: str = "none"  # none | full
+    wire_dtype: str = "auto"  # auto | float32 | float16
     layout: str = "auto"  # auto | NDHWC | folded
     device: str = "cuda"  # cuda | cpu
 
@@ -265,6 +265,17 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                    help='"" fresh, "auto" = latest ckpt of this run dir, or a path')
     p.add_argument("--host_rss_exit_gb", type=float, default=d.host_rss_exit_gb,
                    help="save resumably and stop when host RSS reaches this (GB); 0 = off")
+    p.add_argument("--fetch_ahead", type=int, default=d.fetch_ahead, choices=[0, 1],
+                   help="1 = read each iteration's scalars after the next step is queued")
+    p.add_argument("--step_diagnostics", type=str, default=d.step_diagnostics,
+                   choices=["always", "cadence"],
+                   help="cadence = light step (scalars only) off the monitor/HD95 cadence")
+    p.add_argument("--remat", type=str, default=d.remat, choices=["none", "full"],
+                   help="full = recompute the student forward in the backward pass")
+    p.add_argument("--wire_dtype", type=str, default=d.wire_dtype,
+                   choices=["auto", "float32", "float16"],
+                   help="the batch's dtype on its way to the device; float16 = float16 image "
+                        "and uint8 label")
     p.add_argument("--layout", type=str, default=d.layout, choices=LAYOUTS)
     p.add_argument("--fecl_chunk", type=_non_negative, default=d.fecl_chunk,
                    help="FeCL row tile; 0 = dense")

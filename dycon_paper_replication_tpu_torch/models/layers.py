@@ -9,10 +9,15 @@ port's state_dict without reordering.
 to it (None: the weight to the input's dtype) and emits it, and the bias is
 cast to the output's dtype before it is added, after the conv's own
 rounding. The norms take float32 statistics and return the input's dtype;
-parameters and running statistics stay float32.
+parameters and running statistics stay float32. A train-mode BatchNorm
+writes its running statistics through `update_running_stats`, which does
+nothing inside `frozen_running_stats()`: the recompute of a checkpointed
+forward (train/step.py, remat "full") must not move them a second time.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -70,10 +75,32 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batch_norm(x, self.scale, self.bias, self.mean, self.var)
         y, mean, var = batch_norm_train(x, self.scale, self.bias, self.mean, self.var)
-        with torch.no_grad():
-            self.mean.copy_(mean)
-            self.var.copy_(var)
+        update_running_stats(self, mean, var)
         return y
+
+
+_stats_frozen = False  # inside frozen_running_stats()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorms leave their running stats as they are inside
+    the block. A process-wide switch, not a thread-local one: the autograd
+    engine recomputes a checkpointed forward on its own thread on CUDA."""
+    global _stats_frozen
+    prev, _stats_frozen = _stats_frozen, True
+    try:
+        yield
+    finally:
+        _stats_frozen = prev
+
+
+@torch.no_grad()
+def update_running_stats(bn: BatchNorm, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """bn's running stats <- (mean, var), unless frozen_running_stats()."""
+    if not _stats_frozen:
+        bn.mean.copy_(mean)
+        bn.var.copy_(var)
 
 
 def _add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:

@@ -48,9 +48,7 @@ def _bn_folded(bn: layers.BatchNorm, x: torch.Tensor, n_valid: int,
     y, mean, var = batch_norm_folded(x, bn.scale, bn.bias, bn.mean, bn.var, n_valid, masks,
                                      train=bn.training)
     if bn.training:
-        with torch.no_grad():
-            bn.mean.copy_(mean)
-            bn.var.copy_(var)
+        layers.update_running_stats(bn, mean, var)
     return y
 
 

@@ -209,7 +209,7 @@ def state_on(state: TrainState, device: torch.device,
     return TrainState(copy.deepcopy(state.student).to(device, **kw),
                       copy.deepcopy(state.teacher).to(device, **kw),
                       {k: v.clone().to(device, **kw) for k, v in state.momentum.items()},
-                      state.step)
+                      int(state.step))
 
 
 def run_step(state: TrainState, batch: dict[str, np.ndarray], noise: np.ndarray,
@@ -298,8 +298,8 @@ def bf16_comparisons(rows: list[tuple[str, str, float, float]],
 def _lines(rows, got: TrainState, want: TrainState) -> list[str]:
     out = [f"{group} {k}: max abs diff {diff} > {tol}" for group, k, diff, tol in rows
            if not diff <= tol]
-    if got.step != want.step:
-        out.append(f"step {got.step} vs {want.step}")
+    if int(got.step) != int(want.step):
+        out.append(f"step {int(got.step)} vs {int(want.step)}")
     return out
 
 

@@ -9,24 +9,48 @@ Counterpart of dycon_paper_replication_tpu/train/step.py:
   teacher -> NaN/Inf skip -> train Dice.
 
 The batch layout is the two-stream sampler's: labeled samples first
-(batch[:labeled_bs]). Image (B, D1, D2, D3, 1) float32, label
-(B, D1, D2, D3) integer, on the model's device.
+(batch[:labeled_bs]). Image (B, D1, D2, D3, 1) float32 or float16, label
+(B, D1, D2, D3) integer (uint8 or int32), on the model's device: the
+loader's wire dtypes (data/pipeline.py), widened here to float32 / int64.
 
 One `torch.Generator` on that device draws the step's randomness: the
 teacher noise clip(0.1 N(0, 1), +-0.2), then the teacher's dropout, then the
 student's. The noise can also be passed in, so a test can hand both
-packages the same numbers. The NaN/Inf check reads the loss on the host,
-one sync per step. FeCL is dense at `fecl_chunk` 0; above it, over row
-tiles of `fecl_chunk` through `fecl_impl` "fused" (ops/fecl_fused.py: the
-closed-form backward, the kernel K2 on the card) or "chunked"
+packages the same numbers. FeCL is dense at `fecl_chunk` 0; above it, over
+row tiles of `fecl_chunk` through `fecl_impl` "fused" (ops/fecl_fused.py:
+the closed-form backward, the kernel K2 on the card) or "chunked"
 (ops/dycon.py:fecl_loss_chunked).
 
-Beside the scalars, every step returns the outputs the trainer reads on
-its train-HD95 and monitor iterations (the JAX full step's): the student's
-foreground `pred_fg` (s_probs[..., 1] > 0.5, uint8), its L2-normalised
-`embedding` (B, N, D) and the pooled FeCL mask `mask_con` (B, N). They are
-tensors the step computes anyway, so the JAX light/full pair, which saves
-compiling a second program, has no eager counterpart. Not ported: `remat`.
+The NaN/Inf skip is decided on the device, as the JAX step decides it: the
+update is always computed (train/state.py: sgd_candidate, ema_candidate)
+and `select_` keeps the old values where the loss is not finite. The step
+count is a device tensor, and the learning rate (`lr_schedule(step)`) and
+the EMA alpha (`ema_alpha`) are computed from it in float32 there, so the
+step holds no host read: the host can queue the next step while this one
+runs (train/trainer.py, fetch_ahead). Two host reads remain on paths other
+than the dense-FeCL one: the fused FeCL's backward hands K2 its cross-term
+cotangent as a kernel argument (ops/fecl_fused.py), and a data-parallel
+step's scalar all-reduce, which over gloo is a host round trip by nature.
+
+`diagnostics` (the JAX step's light/full pair): with True the step also
+returns the outputs the trainer reads on its train-HD95 and monitor
+iterations (the JAX full step's): the student's foreground `pred_fg`
+(s_probs[..., 1] > 0.5, uint8), its L2-normalised `embedding` (B, N, D) and
+the pooled FeCL mask `mask_con` (B, N); with False, an empty dict. These
+are tensors the eager step computes anyway (the train Dice and FeCL read
+them), so the light step saves little device time here; it exists so that
+the trainer's diagnostic iterations, and the sample a NaN skip drops, are
+the JAX trainer's.
+
+`cfg.remat` "full" recomputes the student forward in the backward pass
+(torch.utils.checkpoint, non-reentrant), as JAX's jax.checkpoint of the
+student forward; the teacher's no-grad forward is not affected. The
+recompute replays the dropout generator's state from the start of the
+forward and puts it back afterwards (checkpoint's preserve_rng_state saves
+only the default generators), and runs under
+models/layers.frozen_running_stats, so the BatchNorms' running statistics
+move once. It is refused in a data-parallel step, whose BatchNorm sums
+would run their cross-rank all-reduces again inside the backward.
 
 Data parallelism (`shard`, a parallel.Shard): each rank holds its rows of
 the global batch (labeled_bs / N labeled ones first) and computes its term
@@ -46,16 +70,18 @@ The diagnostic outputs are the rank's own rows.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TrainConfig
+from ..models import layers
 from ..ops import dycon, fecl_fused, losses
 from ..parallel import mesh
 from ..ops.resize import avg_pool_nonoverlap
-from .state import TrainState, ema_update, sgd_update
+from .state import TrainState, ema_candidate, select_, sgd_candidate
 
 # order of the per-step scalar vector a step returns
 SCALAR_METRICS = ("loss", "loss_ce", "loss_dice", "f_loss", "u_loss", "consistency_loss",
@@ -93,22 +119,55 @@ def mask_kernel(cfg: TrainConfig, image_spatial, feat_spatial) -> tuple[int, int
     return tuple(i // f for i, f in zip(image_spatial, feat_spatial))
 
 
-def ema_alpha(step: int, decay: float) -> float:
-    """min(1 - 1 / (step + 1), decay) in float32, from the step before the
-    increment (0 at the first step: the teacher takes the student's
-    weights)."""
-    one = np.float32(1.0)
-    return float(min(one - one / (np.float32(step) + one), np.float32(decay)))
+def ema_alpha(step: torch.Tensor | int, decay: float) -> torch.Tensor:
+    """min(1 - 1 / (step + 1), decay) in float32 on the step's device, from
+    the step before the increment (0 at the first step: the teacher takes
+    the student's weights)."""
+    s = torch.as_tensor(step).to(torch.float32)
+    return torch.clamp_max(1.0 - 1.0 / (s + 1.0), decay)
 
 
-def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
-                     shard: mesh.Shard | None = None) -> Callable:
+@contextlib.contextmanager
+def _replayed(generator: torch.Generator | None, start: torch.Tensor | None):
+    """The recompute of a checkpointed student forward: `generator` back at
+    the forward's `start` state (the same dropout masks), and where it was
+    afterwards; the BatchNorms' running stats frozen."""
+    after = None
+    if generator is not None:
+        after = generator.get_state()
+        generator.set_state(start)
+    try:
+        with layers.frozen_running_stats():
+            yield
+    finally:
+        if generator is not None:
+            generator.set_state(after)
+
+
+def remat_forward(student: torch.nn.Module, image: torch.Tensor,
+                  generator: torch.Generator | None):
+    """student(image, generator=generator) with its activations recomputed
+    in the backward pass instead of stored (module doc)."""
+    start = None if generator is None else generator.get_state()
+    return checkpoint(lambda x: student(x, generator=generator), image, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _replayed(generator, start)))
+
+
+def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[torch.Tensor], float | torch.Tensor],
+                     shard: mesh.Shard | None = None, *, diagnostics: bool = True) -> Callable:
     """train_step(state, batch, generator, scalars, noise=None) -> (the
     float32 vector of SCALAR_METRICS on the device, {"pred_fg",
-    "embedding", "mask_con"}); `state` is updated in place. `lr_schedule`
-    maps the step count to the learning rate. With `shard`, `batch` holds
-    this rank's rows and `noise` (if given) is the global batch's (module
-    doc); the returned scalars are the global step's."""
+    "embedding", "mask_con"}, or {} with `diagnostics` False); `state` is
+    updated in place. `lr_schedule` maps the device step count to the
+    learning rate (a float, or a device scalar). With `shard`, `batch`
+    holds this rank's rows and `noise` (if given) is the global batch's
+    (module doc); the returned scalars are the global step's."""
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {cfg.remat!r}")
+    if cfg.remat == "full" and shard is not None:
+        raise ValueError("remat 'full' is not supported with data parallelism: the recompute "
+                         "in the backward pass would run the BatchNorms' cross-rank "
+                         "all-reduces a second time, inside the backward")
     lbs = cfg.labeled_bs if shard is None else shard.labeled
     # per-rank weights of the batch means (1 on one device) and the Dice
     # sums' reduction
@@ -123,7 +182,10 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
         reduce = shard.all_sum
 
     def loss_fn(student, image, label, t_logits, t_features, generator, scalars: StepScalars):
-        _, s_logits, s_features = student(image, generator=generator)
+        if cfg.remat == "full":
+            _, s_logits, s_features = remat_forward(student, image, generator)
+        else:
+            _, s_logits, s_features = student(image, generator=generator)
         s_probs = torch.softmax(s_logits, dim=-1)
         t_probs = torch.softmax(t_logits, dim=-1)
 
@@ -182,7 +244,7 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
             noise = shard.rows_of(noise)
         teacher = state.teacher.train(cfg.teacher_train_mode)
         student = state.student.train()
-        stats = {k: b.clone() for k, b in student.named_buffers()}
+        old_stats = [b.clone() for b in student.buffers()]
         student.zero_grad(set_to_none=True)
         with mesh.sharded(shard):
             with torch.no_grad():
@@ -206,26 +268,31 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[int], float],
                 values, train_dice = summed[:-1], summed[-1] / shard.global_batch
                 total = values[0]
 
-        # NaN/Inf guard: drop the whole update (parameters, student stats,
-        # momentum, teacher EMA, step), as the reference's `continue`; the
-        # teacher's stats still advance, its forward has run. In a
-        # data-parallel step the loss is the global one, so every rank
-        # decides alike.
-        bad = not bool(torch.isfinite(total.detach()))
-        if bad:
-            with torch.no_grad():
-                for k, b in student.named_buffers():
-                    b.copy_(stats[k])
-        else:
+            # NaN/Inf guard, on the device: the whole update (parameters,
+            # student stats, momentum, teacher EMA, step) takes its old
+            # values, as the reference's `continue`; the teacher's stats
+            # still advance, its forward has run. In a data-parallel step
+            # the loss is the global one, so every rank decides alike.
+            bad = ~torch.isfinite(total)
             if shard is not None:
                 _all_sum_grads(student, shard)
-            sgd_update(state, lr_schedule(state.step), cfg.momentum, cfg.weight_decay,
-                       cfg.grad_clip_norm)
-            ema_update(state.teacher, student, ema_alpha(state.step, cfg.ema_decay))
-            state.step += 1
+            # a no-op for the device step of a TrainState (state.py)
+            step = torch.as_tensor(state.step, dtype=torch.int64, device=total.device)
+            new_params, new_momentum = sgd_candidate(state, lr_schedule(step), cfg.momentum,
+                                                     cfg.weight_decay, cfg.grad_clip_norm)
+            new_teacher = ema_candidate(state.teacher, new_params, ema_alpha(step, cfg.ema_decay))
+            params = list(student.parameters())
+            momentum = [state.momentum[k] for k, _ in student.named_parameters()]
+            t_params = list(state.teacher.parameters())
+            stats = list(student.buffers())
+            select_(bad, params + momentum + t_params + stats,
+                    params + momentum + t_params + old_stats,
+                    new_params + new_momentum + new_teacher + stats)
+            state.step = torch.where(bad, step, step + 1)
         student.zero_grad(set_to_none=True)
-        vec = torch.cat([values, train_dice[None],
-                         torch.tensor([float(bad)], device=image.device)])
+        vec = torch.cat([values, train_dice[None], bad.to(values.dtype)[None]])
+        if not diagnostics:
+            return vec, {}
         return vec, {"pred_fg": fg.view(torch.uint8), "embedding": stud_emb.detach(),
                      "mask_con": mask}
 

@@ -12,7 +12,26 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
     (float32 or bfloat16, with float32 parameters, heads and losses and no
     loss scaling, as in the JAX trainer; the validation runs the student
     itself, so in the same dtype); the step (train/step.py) on the
-    device, one sync per step for its scalars, timed by a StepTimer;
+    device, with no host read inside it, timed by a StepTimer from its
+    dispatch to the read of its scalars;
+  * the JAX trainer's pipelined host loop (`fetch_ahead` 1, the default):
+    iteration N+1 is queued before iteration N's scalars are read, from a
+    pinned host buffer after the event of their non-blocking copy, so the
+    host's logging and the next batch's hand-over overlap the card's step.
+    Iterations that must be seen in sync are read at once: the monitor's,
+    train-HD95's, the first, validation, save and the last, and the budget
+    and watchdog exits drain the pending one first. The sync decision is
+    made after the pending read, from the true index. Its two deviations
+    after a NaN skip are JAX's: the step already queued used a consistency
+    weight computed one iteration ahead, and one train-HD95 or monitor
+    sample may be dropped (that step was queued as the light step).
+    `fetch_ahead` 0 reads every step's scalars before the next is queued.
+    `step_diagnostics` "cadence" (the default) queues the light step
+    (train/step.py, diagnostics=False) off the train-HD95 and monitor
+    iterations, picked from the index the step lands on if no queued step
+    is skipped (JAX's `presumed`); "always" queues the full one;
+  * the batches from the loader's pinned ring on CUDA, in `wire_dtype`
+    (data/pipeline.py), a data-parallel rank's rows only;
   * train-HD95 every `hd95_every = max(val_every // 4, 1)` iterations and at
     the first, over the whole batch against its labels (max_dist = the
     patch diagonal for an empty mask): the step's foreground mask is copied
@@ -55,9 +74,11 @@ multiples of N, the learning rate times N); with 0 the rank count is every
 visible device clamped to divide the batch, and the config is kept. Rank 0
 alone logs, writes config.json and the code snapshot, validates (in one
 process, with the auto volume group on CUDA), runs train-HD95 and the
-monitor (on the global batch's rows, gathered from the ranks on their
-iterations) and saves; every rank resumes from the same checkpoint, and a
-stop (time budget, host RSS on any rank) is agreed on by all ranks.
+monitor (on the global batch's rows and labels, gathered from the ranks on
+their iterations) and saves; the ranks take the same fetch_ahead schedule,
+since they see the same global scalars; every rank resumes from the same
+checkpoint, and a stop (time budget, host RSS on any rank) is agreed on by
+all ranks.
 """
 
 from __future__ import annotations
@@ -217,10 +238,13 @@ class Trainer:
             parallel.replicate(self.state.teacher)
 
         if cfg.lr_schedule == "poly":
+            # of the step's device step count: float32 on the device, as JAX traces it
             schedule = lambda step: ramps.poly_lr(cfg.base_lr, step, cfg.max_iterations)  # noqa: E731
         else:
             schedule = lambda step: cfg.base_lr  # noqa: E731
         self.train_step = build_train_step(cfg, schedule, self.shard)
+        self.train_step_light = (build_train_step(cfg, schedule, self.shard, diagnostics=False)
+                                 if cfg.step_diagnostics == "cadence" else self.train_step)
         self.timer = StepTimer()
         self.hd95_every = max(cfg.val_every // 4, 1)
         self._build_data()
@@ -280,7 +304,12 @@ class Trainer:
         sampler = TwoStreamBatchSampler(range(labeled), range(labeled, len(ds)),
                                         cfg.batch_size, cfg.batch_size - cfg.labeled_bs,
                                         seed=cfg.seed)
-        self.loader = BatchLoader(ds, sampler, seed=cfg.seed, prefetch=cfg.num_prefetch)
+        half = cfg.wire_dtype == "float16"  # "auto" is full width off a TPU, as in JAX
+        self.loader = BatchLoader(ds, sampler, seed=cfg.seed, prefetch=cfg.num_prefetch,
+                                  device=self.device,
+                                  image_dtype=np.float16 if half else np.float32,
+                                  label_dtype=np.uint8 if half else np.int32,
+                                  rows=None if self.shard is None else self.shard.rows)
         self.iters_per_epoch = len(sampler)
         self.max_epoch = cfg.max_iterations // self.iters_per_epoch + 1
         self.log.info("%d Iterations per epoch", self.iters_per_epoch)
@@ -334,23 +363,31 @@ class Trainer:
     def _hd95_due(self, iter_num: int) -> bool:
         return iter_num % self.hd95_every == 0 or iter_num == 1
 
-    def _diagnostics(self, diag: dict, label: np.ndarray, iter_num: int, pool) -> None:
+    def _diagnostics(self, diag: dict, label, iter_num: int, pool) -> None:
         """The similarity monitor, and train-HD95 handed to `pool`, on
-        their iterations; in a data-parallel run over the global batch,
-        gathered from every rank to rank 0."""
+        their iterations, from the outputs of a full step (a light step's
+        `diag` is empty: its sample is dropped, as in JAX); in a
+        data-parallel run over the global batch, its rows and `label`
+        (this rank's, a tensor or an array) gathered from every rank to
+        rank 0."""
         cfg = self.cfg
+        monitor = iter_num % MONITOR_EVERY == 0 and "embedding" in diag
+        hd95 = self._hd95_due(iter_num) and "pred_fg" in diag
         if self.shard is not None:
-            keys = ((["embedding", "mask_con"] if iter_num % MONITOR_EVERY == 0 else [])
-                    + (["pred_fg"] if self._hd95_due(iter_num) else []))
+            keys = (["embedding", "mask_con"] if monitor else []) + (["pred_fg"] if hd95 else [])
             diag = {k: self.shard.gather_rows(diag[k]) for k in keys}
+            if hd95:
+                label = self.shard.gather_rows(torch.as_tensor(label, device=self.device))
             if not self.lead:
                 return
-        if iter_num % MONITOR_EVERY == 0:
+        if monitor:
             monitor_similarity_distributions(
                 diag["embedding"], diag["mask_con"], iter_num,
                 os.path.join(self.snapshot_path, f"{cfg.exp}_similarity"))
-        if self._hd95_due(iter_num):
+        if hd95:
             max_dist = float(np.linalg.norm(cfg.patch_size))
+            if torch.is_tensor(label):
+                label = label.cpu().numpy()
             self._hd95_pending.append((iter_num, pool.submit(
                 metrics.compute_hd95_batch, diag["pred_fg"].cpu().numpy(), label, max_dist)))
 
@@ -414,15 +451,69 @@ class Trainer:
                 reason = "Another rank stopped"
         return reason
 
+    def _on_diag_cadence(self, iter_num: int) -> bool:
+        return iter_num % MONITOR_EVERY == 0 or self._hd95_due(iter_num)
+
+    def _must_sync(self, iter_num: int) -> bool:
+        """Whether applied step `iter_num` is read before the next step is
+        queued (module doc)."""
+        cfg = self.cfg
+        return (not cfg.fetch_ahead or self._on_diag_cadence(iter_num)  # the first too
+                or iter_num % cfg.val_every == 0 or iter_num % cfg.save_every == 0
+                or iter_num >= cfg.max_iterations)
+
+    def _fetch(self, vec: torch.Tensor):
+        """Start the copy of a step's scalars to the host: on CUDA into a
+        pinned buffer, non-blocking, with an event after it (the caching
+        host allocator does not hand the buffer out again before that
+        event); read by _read."""
+        if vec.device.type != "cuda":
+            return vec, None
+        host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+        host.copy_(vec, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _read(fetched) -> dict:
+        host, done = fetched
+        if done is not None:
+            done.synchronize()
+        return dict(zip(SCALAR_METRICS, host.tolist()))
+
+    def _finish(self, fetched, diag: dict, label, scalars: StepScalars, t0: float,
+                iter_num: int, pool) -> int:
+        """The read half of one iteration: its scalars, the NaN skip, the
+        diagnostics, logging, validation and the periodic save. Returns the
+        new iteration count; sets self._stop at the last one."""
+        v = self._read(fetched)
+        self.timer.stop(start=t0)
+        if v["skipped"]:
+            # as the reference's `continue`: neither the step nor the
+            # schedules and cadences advance
+            self.log.info("NaN or Inf found in loss at iteration %d — skipped", iter_num)
+            return iter_num
+        iter_num += 1
+        self._diagnostics(diag, label, iter_num, pool)
+        self._log_hd95(wait=False)
+        self._after_step(v, scalars, iter_num)
+        if iter_num >= self.cfg.max_iterations:
+            self._stop = True
+        return iter_num
+
     def run(self) -> float:
         cfg = self.cfg
         t_start = time.monotonic()
-        iter_num = self.state.step  # nonzero after a resume
+        iter_num = int(self.state.step)  # nonzero after a resume
         generator = torch.Generator(device=self.device).manual_seed(
             (cfg.seed + 1) * 1_000_003 + iter_num)
         start_epoch = iter_num // self.iters_per_epoch
         last_epoch = None
         self._hd95_pending = collections.deque()
+        self._stop = False
+        light_ok = cfg.step_diagnostics == "cadence"
+        pending = None  # (fetched, diag, label, scalars, t0) of a queued, unread step
         pool = ThreadPoolExecutor(1, thread_name_prefix="train-hd95")
         try:
             batches = self.loader.epochs(max(1, self.max_epoch - start_epoch))
@@ -431,32 +522,40 @@ class Trainer:
                 if epoch != last_epoch:
                     beta, pos_th, neg_th = self._epoch_scalars(epoch)
                     last_epoch = epoch
-                scalars = StepScalars(beta, self._consistency_weight(iter_num), pos_th, neg_th)
+                # the index this step lands on if the queued one is not skipped
+                presumed = iter_num + 1 + (pending is not None)
+                scalars = StepScalars(beta, self._consistency_weight(presumed - 1), pos_th,
+                                      neg_th)
+                step = (self.train_step_light if light_ok and not self._on_diag_cadence(presumed)
+                        else self.train_step)
                 t0 = self.timer.start()
-                local = parallel.shard_batch(self.shard, batch)
-                vec, diag = self.train_step(self.state, {k: torch.from_numpy(x).to(self.device)
-                                                         for k, x in local.items()},
-                                            generator, scalars)
-                v = dict(zip(SCALAR_METRICS, vec.tolist()))
-                self.timer.stop(start=t0)
-                if v["skipped"]:
-                    # as the reference's `continue`: neither the step nor the
-                    # schedules and cadences advance
-                    self.log.info("NaN or Inf found in loss at iteration %d — skipped", iter_num)
-                    continue
-                iter_num += 1
-                self._diagnostics(diag, batch["label"], iter_num, pool)
-                self._log_hd95(wait=False)
-                self._after_step(v, scalars, iter_num)
-                if iter_num >= cfg.max_iterations:
-                    break
+                tensors = {k: torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                           for k, x in batch.items()}
+                vec, diag = step(self.state, tensors, generator, scalars)
+                current = (self._fetch(vec), diag, tensors["label"], scalars, t0)
+                if pending is not None:
+                    iter_num = self._finish(*pending, iter_num, pool)
+                    pending = None
+                    if self._stop:
+                        break
+                if self._must_sync(iter_num + 1):  # from the true index
+                    iter_num = self._finish(*current, iter_num, pool)
+                    if self._stop:
+                        break
+                else:
+                    pending = current
                 reason = self._stop_reason(iter_num, t_start)
                 if reason:
+                    if pending is not None:
+                        iter_num = self._finish(*pending, iter_num, pool)
+                        pending = None
                     if self.lead:
                         self._save(checkpoint.iter_checkpoint_path(self.snapshot_path,
                                                                    iter_num), iter_num)
                     self.log.info("%s at iteration %d — saved and stopping", reason, iter_num)
                     break
+            if pending is not None:  # the loader ran out first
+                iter_num = self._finish(*pending, iter_num, pool)
             self._log_hd95(wait=True)
             self.log.info("Training Finished!")
         finally:

@@ -65,7 +65,8 @@ def save_train_state(path: str, state: TrainState, meta: dict | None = None) -> 
     stats), momentum and step, plus `meta`."""
     _write(path, {"model": _cpu(state.student.state_dict()),
                   "teacher": _cpu(state.teacher.state_dict()),
-                  "momentum": _cpu(state.momentum), "step": state.step, "meta": meta or {}})
+                  "momentum": _cpu(state.momentum), "step": int(state.step),
+                  "meta": meta or {}})
 
 
 def restore_train_state(path: str, state: TrainState) -> dict:
@@ -78,7 +79,8 @@ def restore_train_state(path: str, state: TrainState) -> dict:
         raise ValueError(f"{path}: momentum buffers do not match the model")
     for k, v in ckpt["momentum"].items():
         state.momentum[k] = v.to(state.momentum[k].device)
-    state.step = int(ckpt["step"])
+    state.step = torch.tensor(int(ckpt["step"]), dtype=torch.int64,
+                              device=next(state.student.parameters()).device)
     return ckpt["meta"]
 
 

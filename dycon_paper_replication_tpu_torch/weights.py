@@ -197,8 +197,8 @@ def torch_train_state_to_jax(state: TrainState, template):
         if "trace" in el._fields:
             el = el._replace(trace=trace)
         elif "count" in el._fields:
-            el = el._replace(count=np.asarray(state.step, np.asarray(el.count).dtype))
+            el = el._replace(count=np.asarray(int(state.step), np.asarray(el.count).dtype))
         opt.append(el)
-    return template._replace(step=np.asarray(state.step, np.asarray(template.step).dtype),
+    return template._replace(step=np.asarray(int(state.step), np.asarray(template.step).dtype),
                              params=params, model_state=mstate, teacher_params=tparams,
                              teacher_state=tstate, opt_state=type(template.opt_state)(opt))

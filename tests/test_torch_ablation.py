@@ -219,13 +219,13 @@ def test_sup_step_is_its_supervised_terms(sup_step):
 
 def _jax_config(root, work, arm, iters):
     """scripts/exp_ssl_ablation.py's config of one arm (its :80-106), on
-    one device, with the JAX step's diagnostics at every step."""
+    one device."""
     return jconfig.make_config(
         "pancreas", root_dir=root, snapshot_root=os.path.join(work, arm), exp=f"hard_{arm}",
         patch_size=PATCH, batch_size=B, labeled_bs=B // 2, labelnum=3, max_iterations=iters,
         val_every=100, save_every=iters, base_lr=0.01, time_budget_s=0.0,
         consistency_rampup=200.0 * iters / 20000.0, resume="", seed=1337,
-        data_parallel=1, step_diagnostics="always", **({} if arm == "dycon" else SUP))
+        data_parallel=1, **({} if arm == "dycon" else SUP))
 
 
 def _lr(p_prev, p_next, momentum):
@@ -321,7 +321,7 @@ def trajectory(request, tmp_path_factory):
                 momentum=state.momentum[LR_LEAF].numpy().copy()))
             return vec, diag
 
-        port.train_step = port_step
+        port.train_step = port.train_step_light = port_step
         port.run()
     out.update(port=port, js0=js0, port_snapshot=port.snapshot_path)
     return out

@@ -18,11 +18,12 @@
     computed by a forward), pred_fg exact wherever the student's
     foreground probability is more than 1e-6 from 0.5;
   * the trainer: its flags (brats19, deterministic 0/1, host_rss_exit_gb,
-    data_parallel; step_diagnostics, fetch_ahead, gpu_ids, use_ddp and a
-    negative data_parallel refused); train-HD95 scored on its worker thread while the loop goes
-    on, each score logged at its own iteration and equal to the score of
-    that step's mask; a NaN step advances neither the iteration nor the
-    cadence; deterministic=1 turns torch.use_deterministic_algorithms on,
+    data_parallel, and step_diagnostics, fetch_ahead, remat and wire_dtype
+    with the JAX parser's defaults and choices; gpu_id, gpu_ids, use_ddp and
+    a negative data_parallel refused); train-HD95 scored on its worker thread
+    while the loop goes on, each score logged at its own iteration and equal
+    to the score of that step's mask; a NaN step advances neither the
+    iteration nor the cadence; deterministic=1 turns torch.use_deterministic_algorithms on,
     deterministic=0 draws and logs a seed, turns cudnn.benchmark on and the
     mode off, deterministic=1 after it keeps the configured seed and turns
     benchmark off and the mode on; resolve_device sets
@@ -30,7 +31,8 @@
     trainer's cuBLAS check refuses a nondeterministic or late value; the
     code snapshot holds the package without the
     kernel build directory; the host-RSS watchdog saves a resumable
-    checkpoint and stops.
+    checkpoint and stops (at fetch_ahead 1 after draining the step queued
+    behind the watchdog's iteration, as the JAX trainer does).
 """
 
 import json
@@ -228,8 +230,17 @@ def test_trainer_flags():
     assert (cfg.deterministic, cfg.host_rss_exit_gb) == (0, 8.0)
     default = tconfig.config_from_args("brats19", [])
     assert (default.deterministic, default.host_rss_exit_gb) == (1, 100.0)
-    for bad in (["--deterministic", "2"], ["--step_diagnostics", "always"],
-                ["--fetch_ahead", "0"], ["--gpu_ids", "0,1"], ["--use_ddp", "1"],
+    jax_default = jconfig.config_from_args("brats19", [])
+    host_loop = ("fetch_ahead", "step_diagnostics", "remat", "wire_dtype")
+    assert [getattr(default, k) for k in host_loop] == [getattr(jax_default, k) for k in host_loop] \
+        == [1, "cadence", "none", "auto"]
+    argv = ["--fetch_ahead", "0", "--step_diagnostics", "always", "--remat", "full",
+            "--wire_dtype", "float16"]
+    assert [getattr(tconfig.config_from_args("brats19", argv), k) for k in host_loop] == \
+        [getattr(jconfig.config_from_args("brats19", argv), k) for k in host_loop]
+    for bad in (["--deterministic", "2"], ["--step_diagnostics", "never"],
+                ["--fetch_ahead", "2"], ["--remat", "half"], ["--wire_dtype", "bfloat16"],
+                ["--gpu_id", "0"], ["--gpu_ids", "0,1"], ["--use_ddp", "1"],
                 ["--data_parallel", "-1"]):
         with pytest.raises(SystemExit):
             tconfig.config_from_args("brats19", bad)
@@ -253,15 +264,19 @@ def test_train_hd95_runs_beside_the_loop(tmp_path, monkeypatch):
         return score(pred, target, max_dist)
 
     monkeypatch.setattr(ttrainer.metrics, "compute_hd95_batch", held_score)
-    calls, step = [], trainer.train_step
+    calls = []
 
-    def counting_step(*args):
-        calls.append(1)
-        if len(calls) == 3:
-            third_step.set()
-        return step(*args)
+    def counting(step):
+        def counting_step(*args):
+            calls.append(1)
+            if len(calls) == 3:
+                third_step.set()
+            return step(*args)
+        return counting_step
 
-    trainer.train_step = counting_step
+    # the full step and the light one (step_diagnostics "cadence")
+    trainer.train_step, trainer.train_step_light = map(
+        counting, (trainer.train_step, trainer.train_step_light))
     trainer.run()
     assert trainer.hd95_every == 2 and len(calls) == 4
     assert [name.startswith("train-hd95") for name, *_ in seen] == [True] * 3
@@ -283,15 +298,19 @@ def test_nan_skip_advances_no_cadence(tmp_path):
     iteration nor the HD95 cadence: the retry is iteration 2 again."""
     argv = _argv(tmp_path, "--max_iterations", "3", "--val_every", "8", "--save_every", "100")
     trainer = ttrainer.Trainer(tconfig.config_from_args("pancreas", argv))
-    asked, step = [], trainer.train_step
+    asked = []
 
-    def second_call_nan(state, batch, gen, scalars):
-        asked.append(state.step)
-        if len(asked) == 2:
-            scalars = scalars._replace(consistency_weight=float("nan"))
-        return step(state, batch, gen, scalars)
+    def second_call_nan(step):
+        def nan_step(state, batch, gen, scalars):
+            asked.append(int(state.step))
+            if len(asked) == 2:
+                scalars = scalars._replace(consistency_weight=float("nan"))
+            return step(state, batch, gen, scalars)
+        return nan_step
 
-    trainer.train_step = second_call_nan
+    # the full step and the light one (step_diagnostics "cadence")
+    trainer.train_step, trainer.train_step_light = map(
+        second_call_nan, (trainer.train_step, trainer.train_step_light))
     trainer.run()
     assert asked == [0, 1, 1, 2]
     assert trainer.state.step == 3
@@ -392,17 +411,23 @@ def test_code_snapshot_leaves_out_the_build(tmp_path):
 
 
 def test_rss_watchdog_saves_and_stops(tmp_path, monkeypatch):
+    """The watchdog fires at iteration 20; at fetch_ahead 1 step 21 is
+    already queued then, and is drained before the save (the JAX trainer's
+    schedule)."""
     monkeypatch.setattr(ttrainer, "_host_rss_gb", lambda: 1e9)
-    argv = _argv(tmp_path, "--max_iterations", "30", "--val_every", "100", "--save_every",
-                 "1000", "--host_rss_exit_gb", "100")
-    trainer = ttrainer.Trainer(tconfig.config_from_args("pancreas", argv))
-    trainer.run()
-    assert trainer.state.step == ttrainer.RSS_EVERY == 20
-    path, _ = checkpoint.latest_checkpoint_path(trainer.snapshot_path, "unet_3D")
-    assert path == checkpoint.iter_checkpoint_path(trainer.snapshot_path, 20)
-    log = open(os.path.join(trainer.snapshot_path, "log.txt")).read()
-    assert "Host RSS 1000000000.0 GB >= host_rss_exit_gb 100 at iteration 20" in log
-    resumed = ttrainer.Trainer(tconfig.config_from_args(
-        "pancreas", argv[:-2] + ["--host_rss_exit_gb", "0", "--resume", "auto"]))
-    resumed.log.close()
-    assert resumed.state.step == 20
+    for fetch_ahead in (0, 1):
+        want = ttrainer.RSS_EVERY + fetch_ahead
+        argv = _argv(tmp_path / f"fetch_ahead{fetch_ahead}", "--max_iterations", "30",
+                     "--val_every", "100", "--save_every", "1000", "--fetch_ahead",
+                     str(fetch_ahead), "--host_rss_exit_gb", "100")
+        trainer = ttrainer.Trainer(tconfig.config_from_args("pancreas", argv))
+        trainer.run()
+        assert trainer.state.step == want and ttrainer.RSS_EVERY == 20
+        path, _ = checkpoint.latest_checkpoint_path(trainer.snapshot_path, "unet_3D")
+        assert path == checkpoint.iter_checkpoint_path(trainer.snapshot_path, want)
+        log = open(os.path.join(trainer.snapshot_path, "log.txt")).read()
+        assert f"Host RSS 1000000000.0 GB >= host_rss_exit_gb 100 at iteration {want}" in log
+        resumed = ttrainer.Trainer(tconfig.config_from_args(
+            "pancreas", argv[:-2] + ["--host_rss_exit_gb", "0", "--resume", "auto"]))
+        resumed.log.close()
+        assert resumed.state.step == want
