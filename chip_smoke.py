@@ -12,9 +12,10 @@ compute (`--compute_dtype bfloat16`) of both families, each through its
 CLI, and then volume groups with pipelined evaluation, data-parallel
 training, the preprocess CLIs, the JAX package's trained Pancreas
 checkpoint's test and the SSL ablation, every training path twice, whose
-reruns must be bit-identical, and last the host loop's settings (the
-pipelined loop against the synchronous one, gradient rematerialisation,
-the narrow wire dtypes).
+reruns must be bit-identical, the host loop's settings (the pipelined
+loop against the synchronous one, gradient rematerialisation, the narrow
+wire dtypes), and last the canonical relay driver (legs killed, resumed
+and tested through the CLIs).
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
@@ -265,14 +266,26 @@ Phases, each timed on its own line:
  42. wire: one trainer step at --wire_dtype float16: the batch on the card
      is float16 and uint8, and bit-equal to the float32 batch of the same
      loader settings rounded to float16 (labels equal);
- 43. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 43. canonical_relay: scripts/canonical_run_torch.py, the canonical
+     Pancreas relay, at full width (patch 112x112x96, batch 8 of which 4
+     labeled, bf16, fetch_ahead 1, step_diagnostics cadence) on the
+     canonical tree cut to 8 + 2 volumes of (128, 128, 112), labelnum 4
+     and val_every 20, max_iterations 80 (phase_canonical_relay lists the
+     cuts): a fresh leg SIGKILLed at iteration >= 45, a --resume auto leg
+     to 80 that must start at 41 with its best-so-far, and the test leg on
+     the 2 volumes; each leg a subprocess whose launches are counted per
+     step (counted_leg): 16 / 7 / 8 of K1-bf16 / dx / K1-dW-bf16 a step
+     and no float32 instance; the test leg's K1-bf16 launches 8 a chunk;
+     the relay log's return codes -9, 0, 0;
+ 44. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
      training, K1 forward, dx and K1-dW in VNet training; the bf16
      instances in bf16 eval, Pancreas and VNet bf16 training, with
      bound_kind "bf16"; K1 and K1-bf16 in trained_eval; K1 forward, dx and
-     K1-dW in the SSL ablation), each with that
+     K1-dW in the SSL ablation; the bf16 instances in the canonical relay's
+     training and test legs), each with that
      path's launch count and the sums
      over its shapes; then `{"ok": true, "device": {...}}` last.
 
@@ -2323,21 +2336,20 @@ def check_trained_eval(out):
                f"on {row['folded_vs_plain']} < {TRAINED_PLAIN_AGREE} of voxels")
 
 
-# The SSL ablation (scripts/ssl_ablation_torch.py) at its defaults: patch
-# 64x64x48, batch 4 of which 2 labeled, so K1's fold grids are (32, 32, 24)
-# at the first level. The smoke runs a cut of the protocol (phase_ssl_ablation)
-def _load_ablation():
-    """scripts/ssl_ablation_torch.py as a module."""
+def _load_script(name):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "ssl_ablation_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                                           "ssl_ablation_torch.py"))
-    abl = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(abl)
-    return abl
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
+# The SSL ablation (scripts/ssl_ablation_torch.py) at its defaults: patch
+# 64x64x48, batch 4 of which 2 labeled, so K1's fold grids are (32, 32, 24)
+# at the first level. The smoke runs a cut of the protocol (phase_ssl_ablation)
 ABLATION_PATCH, ABLATION_BATCH = (64, 64, 48), 4
 ABLATION_SHAPES = [
     ("conv1.conv1", (32, 32, 24), 8, 128, 1), ("conv1.conv2", (33, 33, 25), 128, 128, 0),
@@ -2379,7 +2391,7 @@ def phase_ssl_ablation(torch, tmp):
     from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
     from dycon_paper_replication_tpu_torch.utils import checkpoint
 
-    abl = _load_ablation()
+    abl = _load_script("ssl_ablation_torch")
     counters = _dtype_counters(torch)
     want = {**{f"{k}_f32": n for k, n in UNET_STEP_LAUNCHES.items()},
             **{f"{k}_bf16": 0 for k in UNET_STEP_LAUNCHES}}
@@ -2680,7 +2692,7 @@ def phase_determinism(torch, device, tmp, roots, ablation):
     print(f"determinism dp2: {time.perf_counter() - t0:.3f} s (two runs, the cost)")
     t0 = time.perf_counter()
 
-    abl = _load_ablation()
+    abl = _load_script("ssl_ablation_torch")
     argv = list(ablation["argv"])
     argv[argv.index("--work") + 1] = os.path.join(tmp, "det_ablation")
     argv += ["--arms", "dycon", "--train_only"]
@@ -2818,7 +2830,7 @@ def phase_host_loop(torch, tmp, roots, ablation):
 
     from dycon_paper_replication_tpu_torch.config import config_from_args
 
-    abl = _load_ablation()
+    abl = _load_script("ssl_ablation_torch")
     arm = abl.arm_config(abl.build_parser().parse_args(ablation["argv"]), "dycon")
     common = ["--device", "cuda", "--val_every", "1000", "--save_every", "1000"]
     paths = (("brats", lambda n, fa, snap: config_from_args("brats19", [
@@ -2989,6 +3001,175 @@ def phase_wire(torch, tmp, root):
            "wire: the float16 batch is not the float32 batch rounded to float16")
     _check(math.isfinite(float(got["vec"][0])) and not float(got["vec"][-1]),
            "wire: the step's loss")
+
+
+# phase canonical_relay (module doc, phase 43): the canonical relay driver
+# on a cut of the canonical Pancreas tree (CANONICAL_TREE's shape and seed)
+RELAY_TREE = dict(n_train=8, n_test=2)
+RELAY_LABELNUM, RELAY_VAL_EVERY, RELAY_SAVE_EVERY = 4, 20, 20
+RELAY_KILL_AT, RELAY_ITERS = 45, 80
+
+
+def counted_leg(out_path, module, argv):
+    """Run `python -m module argv` in this process (runpy, as __main__) with
+    the K1 instances' launches counted: each train step with the counts set
+    to 0 before it and read after it, one JSON line a step appended to
+    `out_path` and flushed (a leg killed mid-run leaves the steps it
+    finished), then the whole run's counts as a last line {"total": ...}
+    when it ends. The subprocess a leg of phase canonical_relay runs."""
+    import runpy
+
+    import torch
+
+    from dycon_paper_replication_tpu_torch.train import trainer as trainer_mod
+
+    counters = _dtype_counters(torch)
+    out = open(out_path, "a")
+
+    class CountedTrainer(trainer_mod.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+
+            def counted(step):
+                def counted_step(*a, **k):
+                    for c in counters.values():
+                        c.launches = 0
+                    result = step(*a, **k)
+                    out.write(json.dumps({n: c.launches for n, c in counters.items()}) + "\n")
+                    out.flush()
+                    return result
+                return counted_step
+
+            _wrap_steps(self, counted)
+
+    for c in counters.values():
+        c.launches = 0
+    sys.argv = [module, *argv]
+    try:
+        with mock.patch.object(trainer_mod, "Trainer", CountedTrainer):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        # the test CLI's launches since the start (a train leg's last step's)
+        out.write(json.dumps({"total": {n: c.launches for n, c in counters.items()}}) + "\n")
+        out.close()
+
+
+def _leg_counts(path):
+    """(the per-step lines, the total or None) of a counted leg's file; a
+    line torn by the kill is dropped."""
+    steps, total = [], None
+    with open(path) as f:
+        for line in f:
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            if "total" in row:
+                total = row["total"]
+            else:
+                steps.append(row)
+    return steps, total
+
+
+def phase_canonical_relay(torch, tmp):
+    """The canonical relay driver (scripts/canonical_run_torch.py, through
+    its main, each leg a subprocess of the train or test CLI) at full width:
+    patch 112x112x96, batch 8 of which 4 labeled, bf16, --fetch_ahead 1
+    --step_diagnostics cadence, as scripts/exp_canonical_20k.sh runs it.
+    Cuts of the protocol: the canonical tree (CANONICAL_TREE's shape and
+    seed) cut to 8 + 2 volumes; --labelnum 4 (the canonical 12 needs more
+    than 8 volumes); --val_every 20 (a best checkpoint exists before the
+    test); --save_every 20; --max_iterations 80 (the schedules are those of
+    an 80-iteration run). Legs: fresh, SIGKILLed at iteration >= 45; resume
+    (`--resume auto`) to 80; test (cli.test_pancreas, patch 96^3, stride
+    16/4, bf16) on the 2 test volumes. Gates, each a failure of the phase:
+      * the relay log: return codes -9 (killed by the driver), 0, 0; leg 1
+        from iteration 1 to >= 45; leg 2 resumed from the save at 40,
+        starting at 41, ending at 80, carrying the best-so-far logged by
+        iteration 40 (which the driver also checks); the test leg ran on
+        the best checkpoint, whose best Dice is the run's logged best;
+      * launches, counted in each leg's process with the counts set to 0
+        before a step and read after it (counted_leg): every step of both
+        train legs launches 16 K1-bf16, 7 dx and 8 K1-dW-bf16 and no float32
+        instance; leg 2 runs 40 steps; the test leg launches K1-bf16 8 times
+        a forward chunk and no float32 K1;
+      * the test's Dice, Jaccard, HD95 and ASD finite for both volumes.
+    Returns the launch sums of the train legs' steps and the test leg's
+    K1-bf16 launches."""
+    from dycon_paper_replication_tpu_torch.eval import compute_origins
+
+    driver = _load_script("canonical_run_torch")
+    work = os.path.join(tmp, "canonical_relay")
+    counts = []
+    real_run_leg = driver.run_leg
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def counted_run_leg(args, argv, log_path, kill_at=0):
+        counts.append(os.path.join(work, f"launches_{len(counts) + 1}.jsonl"))
+        code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                f"chip_smoke.counted_leg({counts[-1]!r}, {argv[1]!r}, sys.argv[1:])")
+        return real_run_leg(args, ["-c", code, *argv[2:]], log_path, kill_at)
+
+    common = ["--dataset", "pancreas", "--device", "cuda", "--work", work,
+              "--n_train", str(RELAY_TREE["n_train"]), "--n_test", str(RELAY_TREE["n_test"]),
+              "--labelnum", str(RELAY_LABELNUM), "--val_every", str(RELAY_VAL_EVERY),
+              "--save_every", str(RELAY_SAVE_EVERY), "--max_iterations", str(RELAY_ITERS)]
+    t0 = time.perf_counter()
+    with mock.patch.object(driver, "run_leg", counted_run_leg):
+        legs = [driver.main(common + ["--leg", "fresh", "--kill_at", str(RELAY_KILL_AT)]),
+                driver.main(common + ["--leg", "resume", "--time_budget_s", "600"]),
+                driver.main(common + ["--leg", "test"])]
+    wall = time.perf_counter() - t0
+    for leg in legs:
+        print("canonical_relay " + json.dumps(leg), flush=True)
+    fresh, resume, test = legs
+    _check([leg["rc"] for leg in legs] == [-9, 0, 0] and fresh["killed"]
+           and not resume["killed"],
+           f"canonical_relay: return codes {[leg['rc'] for leg in legs]}, killed "
+           f"{fresh['killed']} / {resume['killed']}")
+    last_save = RELAY_KILL_AT // RELAY_SAVE_EVERY * RELAY_SAVE_EVERY
+    _check(fresh["first_iter"] == 1 and fresh["last_iter"] >= RELAY_KILL_AT
+           and fresh["saved_after"] == [last_save],
+           f"canonical_relay leg 1: {fresh['first_iter']} -> {fresh['last_iter']}, last save "
+           f"{fresh['saved_after']}")
+    _check(resume["resumed_step"] == last_save and resume["first_iter"] == last_save + 1
+           and resume["last_iter"] == RELAY_ITERS,
+           f"canonical_relay leg 2: resumed at {resume['resumed_step']}, "
+           f"{resume['first_iter']} -> {resume['last_iter']}")
+    _check(resume["best_carried"] is not None
+           and abs(resume["best_carried"] - resume["best_before"]) <= 5e-5,
+           f"canonical_relay leg 2: best-so-far {resume['best_carried']}, logged "
+           f"{resume['best_before']}")
+    _check(test["best_dice"] == test["logged_best"] and test["best_dice"] > 0,
+           f"canonical_relay test: best checkpoint's Dice {test['best_dice']}, logged "
+           f"{test['logged_best']}")
+    _check(len(test["cases"]) == RELAY_TREE["n_test"]
+           and all(math.isfinite(v) for case in test["cases"] for v in case),
+           f"canonical_relay test: {test['cases']}")
+
+    want = _bf16_launches(UNET_STEP_LAUNCHES)
+    sums = {k: 0 for k in UNET_STEP_LAUNCHES}
+    for i, path in enumerate(counts[:2]):
+        steps, _ = _leg_counts(path)
+        _check(steps and all(row == want for row in steps),
+               f"canonical_relay leg {i + 1}: launches a step "
+               f"{[row for row in steps if row != want][:2]}, want {want}")
+        for k in sums:
+            sums[k] += sum(row[f"{k}_bf16"] for row in steps)
+    n_resumed = len(_leg_counts(counts[1])[0])
+    _check(n_resumed == RELAY_ITERS - last_save,
+           f"canonical_relay leg 2: {n_resumed} steps counted")
+    shape = CANONICAL_TREE["shape"]
+    chunks = math.ceil(len(compute_origins(shape, PATCH, STRIDE_XY, STRIDE_Z)) / PATCH_BATCH)
+    _, total = _leg_counts(counts[2])
+    want_test = 8 * chunks * RELAY_TREE["n_test"]
+    _check(total is not None and total["k1_bf16"] == want_test and total["k1_f32"] == 0,
+           f"canonical_relay test: launches {total}, want {want_test} K1-bf16")
+    print(f"canonical_relay: legs 1 -> {fresh['last_iter']} (killed), {resume['first_iter']} "
+          f"-> {resume['last_iter']}, test Dice {test['mean']}; train-leg launches {sums}, "
+          f"test K1-bf16 {total['k1_bf16']}; ms/iter {fresh['ms_per_iter']:.3f} / "
+          f"{resume['ms_per_iter']:.3f} (leg wall incl. start-up); {wall:.3f} s", flush=True)
+    return dict(launches=sums, test_k1=total["k1_bf16"])
 
 
 def main() -> int:
@@ -3213,6 +3394,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_wire(torch, tmp, train["root"])
         _phase("wire", t0)
+        t0 = time.perf_counter()
+        relay = phase_canonical_relay(torch, tmp)
+        _phase("canonical_relay", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -3277,6 +3461,17 @@ def main() -> int:
             ("folded_conv3_dw_ablation", "k1_dw", dw_abl_rows, dw_src, dw_replaces)):
         kernels.append(_kernel_entry(name, "ssl_ablation", src, replaces,
                                      ablation["launches"][launches_key], rows, bound="tf32x3"))
+    for name, launches, rows, src, replaces in (
+            ("folded_conv3_train_bf16_relay", relay["launches"]["k1"], bf16_rows["train"], k1_src,
+             K1_REPLACES),
+            ("folded_conv3_dx_bf16_relay", relay["launches"]["k1_dx"], bf16_rows["dx"], k1_src,
+             dx_replaces),
+            ("folded_conv3_dw_bf16_relay", relay["launches"]["k1_dw"], bf16_rows["dw"], dw_src,
+             dw_replaces),
+            ("folded_conv3_bf16_relay_test", relay["test_k1"], bf16_rows["eval"], k1_src,
+             K1_REPLACES)):
+        kernels.append(_kernel_entry(name, "canonical_relay", src, replaces, launches, rows,
+                                     bound="bf16"))
     for name, key, row in (("K2 forward (ISLES train)", "k2_fwd", fecl_rows["fwd"]),
                            ("K2 backward (ISLES train)", "k2_bwd", fecl_rows["bwd"])):
         kernels.append(dict(name=name, path="isles_train", route="cuda", source=K2_SOURCE,

@@ -94,26 +94,44 @@ def _argv(kind, root, runs, fetch_ahead, diagnostics):
 
 def _outcome(cfg, best):
     """(best, {name: tensor} of the saved final state, logged info/ and
-    train/ scalars) of a finished run."""
-    ckpt = torch.load(checkpoint.iter_checkpoint_path(cfg.snapshot_path(), STEPS),
+    train/ scalars) of a finished run, whose checkpoint files are then
+    removed (each holds a full train state)."""
+    snapshot = cfg.snapshot_path()
+    ckpt = torch.load(checkpoint.iter_checkpoint_path(snapshot, STEPS),
                       map_location="cpu", weights_only=False)
     state = {f"{part}.{k}": v for part in ("model", "teacher", "momentum")
              for k, v in ckpt[part].items()}
     state["step"] = torch.tensor(ckpt["step"])
-    with open(os.path.join(cfg.snapshot_path(), "metrics.jsonl")) as f:
+    with open(os.path.join(snapshot, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     logged = {(r["step"], r["tag"]): r["value"] for r in rows
               if r["tag"].startswith(("info/", "train/"))}
+    for name in os.listdir(snapshot):
+        if name.endswith(".pt"):
+            os.remove(os.path.join(snapshot, name))
     return best, state, logged
 
 
+def _against_first(outcomes):
+    """Each run's (best, step, logged scalars, its state's keys equal the
+    first run's, the keys whose tensors are not torch.equal to the first
+    run's), taken as the runs finish: only the first run's state is held."""
+    first = None
+    for best, state, logged in outcomes:
+        first = first or state
+        yield (best, int(state["step"]), logged, state.keys() == first.keys(),
+               [k for k in first if k in state and not torch.equal(state[k], first[k])])
+
+
 def _dp_runs(rank, world, device, cfgs):
-    """Each config's Trainer in this rank, in turn; rank 0's outcomes."""
-    out = []
-    for cfg in cfgs:
-        best = ttrainer.Trainer(cfg, rank, world).run()
-        out.append(_outcome(cfg, best) if rank == 0 else None)
-    return out
+    """Each config's Trainer in this rank, in turn; rank 0's outcomes,
+    compared with the first run's in the rank (_against_first): four train
+    states through parallel.launch's result file are ~300 MB on disk, and
+    with the disk near full under a parallel test run, that write failed."""
+    runs = ((ttrainer.Trainer(cfg, rank, world).run(), cfg) for cfg in cfgs)
+    if rank != 0:
+        return [best for best, _ in runs]
+    return list(_against_first(_outcome(cfg, best) for best, cfg in runs))
 
 
 def hold_schedules(tmp_path, kind):
@@ -126,14 +144,14 @@ def hold_schedules(tmp_path, kind):
     if kind == "dp2":
         outcomes = parallel.launch(_dp_runs, 2, args=(cfgs,), threads=1, timeout=600)
     else:
-        outcomes = [_outcome(cfg, ttrainer.Trainer(cfg).run()) for cfg in cfgs]
-    (best0, state0, logged0) = outcomes[0]
-    assert int(state0["step"]) == STEPS and best0 > 0
+        outcomes = list(_against_first(_outcome(cfg, ttrainer.Trainer(cfg).run())
+                                       for cfg in cfgs))
+    (best0, step0, logged0, _, _) = outcomes[0]
+    assert step0 == STEPS and best0 > 0
     assert sorted({s for s, t in logged0 if t == "train/HD95"}) == [1, 2, 4, 6, 8]
-    for (fa, sd), (best, state, logged) in zip(SETTINGS[1:], outcomes[1:]):
+    for (fa, sd), (best, _, logged, same_keys, differ) in zip(SETTINGS[1:], outcomes[1:]):
         assert best == best0, (fa, sd)
-        assert state.keys() == state0.keys()
-        differ = [k for k in state0 if not torch.equal(state[k], state0[k])]
+        assert same_keys
         assert not differ, (fa, sd, differ[:3])
         assert logged == logged0, (fa, sd)
 
