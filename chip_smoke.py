@@ -3111,14 +3111,15 @@ def phase_canonical_relay(torch, tmp):
         return real_run_leg(args, ["-c", code, *argv[2:]], log_path, kill_at)
 
     common = ["--dataset", "pancreas", "--device", "cuda", "--work", work,
-              "--n_train", str(RELAY_TREE["n_train"]), "--n_test", str(RELAY_TREE["n_test"]),
-              "--labelnum", str(RELAY_LABELNUM), "--val_every", str(RELAY_VAL_EVERY),
-              "--save_every", str(RELAY_SAVE_EVERY), "--max_iterations", str(RELAY_ITERS)]
+              "--n_train", str(RELAY_TREE["n_train"]), "--n_test", str(RELAY_TREE["n_test"])]
+    run = ["--labelnum", str(RELAY_LABELNUM), "--max_iterations", str(RELAY_ITERS)]
+    train = ["--", *run, "--val_every", str(RELAY_VAL_EVERY), "--save_every",
+             str(RELAY_SAVE_EVERY)]
     t0 = time.perf_counter()
     with mock.patch.object(driver, "run_leg", counted_run_leg):
-        legs = [driver.main(common + ["--leg", "fresh", "--kill_at", str(RELAY_KILL_AT)]),
-                driver.main(common + ["--leg", "resume", "--time_budget_s", "600"]),
-                driver.main(common + ["--leg", "test"])]
+        legs = [driver.main(common + ["--leg", "fresh", "--kill_at", str(RELAY_KILL_AT), *train]),
+                driver.main(common + ["--leg", "resume", "--time_budget_s", "600", *train]),
+                driver.main(common + ["--leg", "test", "--", *run])]
     wall = time.perf_counter() - t0
     for leg in legs:
         print("canonical_relay " + json.dumps(leg), flush=True)

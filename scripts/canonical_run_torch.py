@@ -17,13 +17,18 @@ flags. The tree is the one those runs trained on, made on the host at
   brats19  - make_brats19(n_train=249, n_test=24, shape=(128, 128, 96)),
              seed 0; --max_iterations 20000 --save_every 500 --compute_dtype
              bfloat16.
-`--max_iterations`, `--save_every`, `--val_every`, `--labelnum`,
-`--patch_size`, `--batch_size`, `--labeled_bs`, `--n_train`, `--n_test`
-and `--shape` cut the protocol (the chip smoke's phase canonical_relay, the
-CPU tests); `--compute_dtype float32` runs a leg for comparison with the
-bfloat16 run; `--device` is cuda unless the caller asks for cpu.
+Whatever follows `--` goes to the leg's CLI unchanged, after the driver's
+own flags, so that it cuts or overrides the protocol: train flags for
+fresh, resume, pack and unpack (pack and unpack read the run directory
+from them), test flags for test (`-- --compute_dtype float32` runs a
+leg for comparison with the bfloat16 run). `--n_train`, `--n_test` and
+`--shape` cut the tree; `--device` is cuda unless the caller asks for cpu.
+The smoke's phase canonical_relay, for example:
+    ... --leg fresh --kill_at 45 -- --labelnum 4 --val_every 20 \
+        --save_every 20 --max_iterations 80
+    ... --leg test -- --labelnum 4 --max_iterations 80
 
-Each leg is a subprocess of the train CLI (`python -m
+Each train leg is a subprocess of the train CLI (`python -m
 dycon_paper_replication_tpu_torch.cli.train_<dataset>`) with
 `--time_budget_s`, whose clean, resumable exit is its one normal stop:
   fresh  - trains from scratch (the run directory must hold no checkpoint);
@@ -34,10 +39,16 @@ dycon_paper_replication_tpu_torch.cli.train_<dataset>`) with
            checkpoint, the run's logs and the relay log) into `--carry`, a
            zip in which each tensor's bytes are split into planes (the
            teacher's XORed with the student's first) and deflated: lossless,
-           about 0.8 of the checkpoint's size, so that a full train state
-           fits through a copy of limited size;
-  unpack - restores `--carry` into the run directory, checking each
-           tensor's SHA-256.
+           about 0.8 of the checkpoint's size (57 MiB at the canonical
+           width), so that a full train state fits through a copy of limited
+           size; and the best model's student weights and metadata, all the
+           test leg reads, into a second zip beside it, `<carry>_best.zip`
+           (best_carry; 20 MiB). Where a copy back holds only one of the
+           two, run the test leg before pack on a machine where the best
+           changed: the relay log carries its line;
+  unpack - restores `--carry` (and `<carry>_best.zip` where it exists) into
+           the run directory, checking each tensor's SHA-256; the best model
+           comes back as an evaluation checkpoint (student and metadata).
 `--kill_at N` sends the leg SIGKILL (its whole process group) once its log
 shows an iteration >= N: the crash that `--resume auto` recovers from.
 
@@ -63,6 +74,7 @@ import os
 import re
 import signal
 import subprocess
+import math
 import sys
 import time
 import zipfile
@@ -93,7 +105,8 @@ DATASETS = {
 ITERATION = re.compile(r"Iteration (\d+) : ")
 RESUMED = re.compile(r"Resumed full train state from (\S+) \(step (\d+), best-so-far ([0-9.]+)\)")
 ITER_FILE = re.compile(r"iter_(\d+)(?:_dice_[0-9.]+)?\.pt")
-POLL_S, MEM_EVERY_S = 1.0, 5.0
+TESTED = re.compile(r"init weight from (\S+)")
+POLL_S, MEM_EVERY_S = 0.1, 5.0
 
 
 class RelayError(RuntimeError):
@@ -113,25 +126,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SIGKILL the leg once it logs an iteration >= N (0: never)")
     p.add_argument("--time_budget_s", type=float, default=3000.0)
     p.add_argument("--carry", type=str, default=None, help="the zip of --leg pack / unpack")
-    p.add_argument("--max_iterations", type=int, default=20000)
-    p.add_argument("--save_every", type=int, default=None)
-    p.add_argument("--val_every", type=int, default=None)
-    p.add_argument("--labelnum", type=int, default=None)
-    p.add_argument("--patch_size", type=int, nargs=3, default=None)
-    p.add_argument("--batch_size", type=int, default=None)
-    p.add_argument("--labeled_bs", type=int, default=None)
     p.add_argument("--n_train", type=int, default=None)
     p.add_argument("--n_test", type=int, default=None)
     p.add_argument("--shape", type=int, nargs=3, default=None)
-    p.add_argument("--test_patch", type=int, nargs=3, default=None,
-                   help="the test leg's patch (default the test CLI's 96^3)")
-    p.add_argument("--test_stride", type=int, nargs=2, default=None,
-                   help="the test leg's stride_xy, stride_z (default 16 4)")
-    p.add_argument("--compute_dtype", type=str, default="bfloat16",
-                   choices=["bfloat16", "float32"],
-                   help="the train and test legs' dtype (float32: the comparison leg)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The driver's flags, and in `cli` whatever follows `--` (module doc)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cut = argv.index("--") if "--" in argv else len(argv)
+    args = build_parser().parse_args(argv[:cut])
+    args.cli = argv[cut + 1:]
+    return args
 
 
 def paths(args) -> tuple[str, str]:
@@ -143,16 +151,9 @@ def train_argv(args) -> list[str]:
     """The train CLI's flags for this run, without the leg's own."""
     work, root = paths(args)
     spec = DATASETS[args.dataset]
-    argv = ["--root_dir", root, "--snapshot_root", os.path.join(work, "runs"),
-            "--max_iterations", str(args.max_iterations),
-            "--save_every", str(args.save_every or spec["save_every"]),
-            "--compute_dtype", args.compute_dtype, *spec["flags"], "--device", args.device]
-    for flag in ("val_every", "labelnum", "batch_size", "labeled_bs"):
-        if getattr(args, flag) is not None:
-            argv += [f"--{flag}", str(getattr(args, flag))]
-    if args.patch_size:
-        argv += ["--patch_size", *map(str, args.patch_size)]
-    return argv
+    return ["--root_dir", root, "--snapshot_root", os.path.join(work, "runs"),
+            "--max_iterations", "20000", "--save_every", str(spec["save_every"]),
+            "--compute_dtype", "bfloat16", *spec["flags"], "--device", args.device, *args.cli]
 
 
 def snapshot_path(args) -> str:
@@ -230,9 +231,11 @@ def run_leg(args, argv: list[str], log_path: str, kill_at: int = 0) -> dict:
                                 stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
         try:
             with open(log_path) as log:
+                tail = ""  # a line not yet ended: read on with the next poll
                 while proc.poll() is None:
                     time.sleep(POLL_S)
-                    for m in ITERATION.finditer(log.read()):
+                    *lines, tail = (tail + log.read()).split("\n")
+                    for m in filter(None, map(ITERATION.search, lines)):
                         last = int(m.group(1))
                     if on_cuda and time.time() - t_mem >= MEM_EVERY_S:
                         t_mem, used = time.time(), device_mem_mib()
@@ -320,40 +323,36 @@ def train_leg(args) -> dict:
 
 
 def test_leg(args) -> dict:
+    """Leg test (module doc): the test CLI on the best checkpoint of the run
+    directory that its flags name; raises RelayError where it fails."""
     if args.dataset != "pancreas":
         raise SystemExit("--leg test runs the Pancreas test CLI; the BraTS relay has none")
     work, root = paths(args)
     ensure_tree(args)
-    snapshot = snapshot_path(args)
-    best = checkpoint.best_checkpoint_path(snapshot, "unet_3D")
-    if not os.path.isfile(best):
-        raise RelayError(f"leg test: no best checkpoint at {best}")
-    meta = torch.load(best, map_location="cpu", weights_only=True)["meta"]
     argv = ["-m", "dycon_paper_replication_tpu_torch.cli.test_pancreas", "--root_path", root,
-            "--snapshot_root", os.path.join(work, "runs"),
-            "--max_iterations", str(args.max_iterations), "--compute_dtype", args.compute_dtype,
-            "--device", args.device]
-    if args.labelnum is not None:
-        argv += ["--labelnum", str(args.labelnum)]
-    if args.test_patch:
-        argv += ["--patch_size", *map(str, args.test_patch)]
-    if args.test_stride:
-        argv += ["--stride_xy", str(args.test_stride[0]), "--stride_z", str(args.test_stride[1])]
+            "--snapshot_root", os.path.join(work, "runs"), "--max_iterations", "20000",
+            "--compute_dtype", "bfloat16", "--device", args.device, *args.cli]
     n = leg_index(work)
     os.makedirs(os.path.join(work, "logs"), exist_ok=True)
     log = os.path.join(work, "logs", f"leg{n}_test.log")
     print(f"leg {n} (test): {' '.join(argv)}", flush=True)
     out = run_leg(args, argv, log)
     with open(log) as f:
-        scores = parse_test_log(f.read())
-    line = dict(leg=n, kind="test", dataset=args.dataset, rc=out["rc"], best_step=meta.get("step"),
-                best_dice=meta.get("best_dice"),
-                logged_best=logged_best(snapshot, args.max_iterations), wall_s=out["wall_s"],
-                t_start=out["t_start"], t_end=out["t_end"], device_mem_mib=out["device_mem_mib"],
+        text = f.read()
+    scores, tested = parse_test_log(text), TESTED.search(text)
+    meta = tested and torch.load(tested.group(1), map_location="cpu", weights_only=True)["meta"]
+    line = dict(leg=n, kind="test", dataset=args.dataset, rc=out["rc"],
+                tested=tested and os.path.basename(tested.group(1)),
+                best_step=meta and meta.get("step"), best_dice=meta and meta.get("best_dice"),
+                logged_best=tested and logged_best(os.path.dirname(tested.group(1)), math.inf),
+                wall_s=out["wall_s"], t_start=out["t_start"], t_end=out["t_end"],
+                device_mem_mib=out["device_mem_mib"],
                 card=card() if args.device == "cuda" else None, **scores)
     record(args, line)
     if out["rc"] != 0 or scores["mean"] is None:
-        raise RelayError(f"leg {n} (test): exited {out['rc']}, averages {scores['mean']}")
+        last = text.strip().splitlines()[-1:] or [""]
+        raise RelayError(f"leg {n} (test): exited {out['rc']}, averages {scores['mean']}: "
+                         f"{last[0]} ({log})")
     return line
 
 
@@ -378,9 +377,40 @@ def _sha(t: torch.Tensor) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def best_carry(carry: str) -> str:
+    """The zip beside `carry` that holds the best model (module doc)."""
+    return os.path.splitext(carry)[0] + "_best.zip"
+
+
+def _write_tensors(z: zipfile.ZipFile, prefix: str, sd: dict, ref: dict | None = None) -> dict:
+    """Each tensor of `sd` as byte planes under `prefix`, XORed with its
+    float32 namesake in `ref` first where there is one; their manifest."""
+    specs = {}
+    for key, t in sd.items():
+        r = ref.get(key) if ref is not None else None
+        xor = r is not None and t.dtype == r.dtype == torch.float32 and t.shape == r.shape
+        specs[key] = dict(dtype=str(t.dtype), shape=list(t.shape), xor=xor, sha256=_sha(t))
+        z.writestr(f"{prefix}/{key}", _planes(_xor(t, r) if xor else t))
+    return specs
+
+
+def _read_tensors(z: zipfile.ZipFile, prefix: str, specs: dict, ref: dict | None = None) -> dict:
+    """The inverse of _write_tensors, each tensor checked against its SHA-256."""
+    out = {}
+    for key, spec in specs.items():
+        t = _unplanes(z.read(f"{prefix}/{key}"), spec["dtype"], spec["shape"])
+        if spec["xor"]:
+            t = _xor(t, ref[key])
+        if _sha(t) != spec["sha256"]:
+            raise RelayError(f"unpack: {prefix}/{key} does not match its SHA-256")
+        out[key] = t
+    return out
+
+
 def pack(args) -> dict:
     """--leg pack (module doc): the latest checkpoint, metrics.jsonl,
-    log.txt, config.json, relay.jsonl and the leg logs into --carry."""
+    log.txt, config.json, relay.jsonl and the leg logs into --carry; the
+    best model's student and metadata into best_carry(--carry)."""
     work, _ = paths(args)
     snapshot = snapshot_path(args)
     saved = saved_iterations(snapshot)
@@ -392,15 +422,10 @@ def pack(args) -> dict:
     manifest = dict(file=name, step=ckpt["step"], meta=ckpt["meta"], tensors={})
     os.makedirs(os.path.dirname(os.path.abspath(args.carry)), exist_ok=True)
     with zipfile.ZipFile(args.carry, "w", zipfile.ZIP_DEFLATED, compresslevel=6) as z:
+        # the teacher is an EMA of the student: XORed, its high bytes are mostly 0
         for part in ("model", "teacher", "momentum"):
-            for key, t in ckpt[part].items():
-                # the teacher is an EMA of the student: XORed, its high bytes are mostly 0
-                ref = ckpt["model"].get(key) if part == "teacher" else None
-                xor = (ref is not None and t.dtype == ref.dtype == torch.float32
-                       and t.shape == ref.shape)
-                manifest["tensors"][f"{part}/{key}"] = dict(
-                    dtype=str(t.dtype), shape=list(t.shape), xor=xor, sha256=_sha(t))
-                z.writestr(f"ckpt/{part}/{key}", _planes(_xor(t, ref) if xor else t))
+            manifest["tensors"][part] = _write_tensors(
+                z, f"ckpt/{part}", ckpt[part], ckpt["model"] if part == "teacher" else None)
         logs = os.path.join(work, "logs")
         files = [(os.path.join(snapshot, f), f"run/{f}")
                  for f in ("metrics.jsonl", "log.txt", "config.json")]
@@ -411,10 +436,24 @@ def pack(args) -> dict:
             if os.path.exists(path):
                 z.write(path, arcname)
         z.writestr("manifest.json", json.dumps(manifest))
-    mib = os.path.getsize(args.carry) / 2 ** 20
-    print(f"packed {name} (step {ckpt['step']}) and the logs into {args.carry}: {mib:.3f} MiB",
-          flush=True)
-    return dict(file=name, step=ckpt["step"], mib=mib)
+    out = dict(file=name, step=ckpt["step"], mib=os.path.getsize(args.carry) / 2 ** 20)
+    best_path = checkpoint.best_checkpoint_path(snapshot, config_from_args(
+        args.dataset, train_argv(args)).model)
+    if os.path.isfile(best_path):
+        best = torch.load(best_path, map_location="cpu", weights_only=True)
+        with zipfile.ZipFile(best_carry(args.carry), "w", zipfile.ZIP_DEFLATED,
+                             compresslevel=6) as z:
+            specs = _write_tensors(z, "best/model", best["model"])
+            z.writestr("manifest.json", json.dumps(dict(
+                file=os.path.basename(best_path), meta=best["meta"], tensors=specs)))
+        out.update(best_step=best["meta"].get("step"),
+                   best_mib=os.path.getsize(best_carry(args.carry)) / 2 ** 20)
+    elif os.path.exists(best_carry(args.carry)):
+        os.remove(best_carry(args.carry))  # an older run's: it is not this run's best
+    print(f"packed {name} (step {ckpt['step']}) and the logs into {args.carry}: "
+          f"{out['mib']:.3f} MiB; best model {out.get('best_step')}: "
+          f"{out.get('best_mib', 0.0):.3f} MiB", flush=True)
+    return out
 
 
 def unpack(args) -> dict:
@@ -426,16 +465,10 @@ def unpack(args) -> dict:
     os.makedirs(snapshot, exist_ok=True)
     with zipfile.ZipFile(args.carry) as z:
         manifest = json.loads(z.read("manifest.json"))
-        ckpt = {"model": {}, "teacher": {}, "momentum": {}, "step": manifest["step"],
-                "meta": manifest["meta"]}
-        for name, spec in manifest["tensors"].items():  # model first: the teacher XORs with it
-            part, key = name.split("/", 1)
-            t = _unplanes(z.read(f"ckpt/{name}"), spec["dtype"], spec["shape"])
-            if spec["xor"]:
-                t = _xor(t, ckpt["model"][key])
-            if _sha(t) != spec["sha256"]:
-                raise RelayError(f"leg unpack: {name} does not match its SHA-256")
-            ckpt[part][key] = t
+        ckpt = {"step": manifest["step"], "meta": manifest["meta"]}
+        for part in ("model", "teacher", "momentum"):  # model first: the teacher XORs with it
+            ckpt[part] = _read_tensors(z, f"ckpt/{part}", manifest["tensors"][part],
+                                       ckpt["model"] if part == "teacher" else None)
         for member in z.namelist():
             if member.startswith(("run/", "work/")):
                 base = snapshot if member.startswith("run/") else work
@@ -444,12 +477,20 @@ def unpack(args) -> dict:
                 with open(dst, "wb") as f:
                     f.write(z.read(member))
     torch.save(ckpt, os.path.join(snapshot, manifest["file"]))
-    print(f"unpacked {manifest['file']} (step {manifest['step']}) into {snapshot}", flush=True)
-    return dict(file=manifest["file"], step=manifest["step"])
+    out = dict(file=manifest["file"], step=manifest["step"])
+    if os.path.exists(best_carry(args.carry)):
+        with zipfile.ZipFile(best_carry(args.carry)) as z:
+            best = json.loads(z.read("manifest.json"))
+            model = _read_tensors(z, "best/model", best["tensors"])
+        torch.save({"model": model, "meta": best["meta"]}, os.path.join(snapshot, best["file"]))
+        out.update(best_step=best["meta"].get("step"))
+    print(f"unpacked {manifest['file']} (step {manifest['step']}) and best model "
+          f"{out.get('best_step')} into {snapshot}", flush=True)
+    return out
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     if args.leg in ("pack", "unpack") and not args.carry:
         raise SystemExit(f"--leg {args.leg} needs --carry")
     work, _ = paths(args)

@@ -3,8 +3,7 @@
 beside the TPU's committed record of the same run, and hold it to the gates.
 
     python3 scripts/canonical_table_torch.py --dataset pancreas \
-        [--work runs/canonical/pancreas] [--out table.json]
-    python3 scripts/canonical_table_torch.py --metrics M.jsonl  # summarize_canon20k's rows
+        [--work runs/canonical/pancreas] [--reach N] [--out table.json]
 
 Reads the run's metrics.jsonl (under `--work`/runs), the relay log
 (`--work`/relay.jsonl), the leg logs (`--work`/logs) and the test leg's
@@ -31,10 +30,11 @@ Gates (the Pancreas relay; BraTS holds (a) and its milestones):
       best-so-far logged by then (the driver checks both and records them);
   (b) best val Dice within BEST_TOL of the TPU's;
   (c) val Dice at each milestone within MILESTONE_TOL of the TPU's row;
-  (d) the dense test's mean Dice within DICE_MEAN_TOL of the TPU's,
-      Jaccard within JACCARD_TOL, every volume's Dice within
-      DICE_VOLUME_TOL of its row of the TPU's log (chip_smoke.TPU_LOG, the
-      bounds of its phase trained_eval);
+  (d) the relay log's last test ran on the run's best model (its best
+      Dice the last info/Best_dice logged); its mean Dice within
+      DICE_MEAN_TOL of the TPU's, Jaccard within JACCARD_TOL, every
+      volume's Dice within DICE_VOLUME_TOL of its row of the TPU's log
+      (chip_smoke.TPU_LOG, the bounds of its phase trained_eval);
   (e) no leak: in each leg of >= LEAK_MIN_ITERS iterations, host RSS at its
       last validation within RSS_GROWTH x its value 1000 iterations into
       the leg; each leg's device memory within DEVICE_MEM_TOL of leg 1's.
@@ -167,11 +167,13 @@ def gates(dataset: str, run: dict, tpu: dict, legs: list[dict], test: dict | Non
     if test and test["mean"] and tpu_test and tpu_test["mean"]:
         n = len(test["cases"])
         bad = [i for i in range(n) if abs(test["cases"][i][0] - TPU_LOG[i][0]) > DICE_VOLUME_TOL]
-        g["d"] = (n == len(TPU_LOG) and not bad
+        g["d"] = (n == len(TPU_LOG) and not bad and test["best_dice"] == run["final_best"]
                   and abs(test["mean"][0] - tpu_test["mean"][0]) <= DICE_MEAN_TOL
                   and abs(test["mean"][1] - tpu_test["mean"][1]) <= JACCARD_TOL,
-                  f"Dice {test['mean'][0]} / {tpu_test['mean'][0]}, Jaccard {test['mean'][1]} / "
-                  f"{tpu_test['mean'][1]}, {n} volumes, off by > {DICE_VOLUME_TOL}: {bad}")
+                  f"tested the best of {test['best_step']} ({test['best_dice']}; the run's "
+                  f"{run['final_best']}); Dice {test['mean'][0]} / {tpu_test['mean'][0]}, "
+                  f"Jaccard {test['mean'][1]} / {tpu_test['mean'][1]}, {n} volumes, off by > "
+                  f"{DICE_VOLUME_TOL}: {bad}")
     else:
         g["d"] = (False, "no dense test")
     leaks = []
@@ -192,19 +194,17 @@ def gates(dataset: str, run: dict, tpu: dict, legs: list[dict], test: dict | Non
 def table(args) -> dict:
     spec = RECORD[args.dataset]
     work = args.work or os.path.join(ROOT, "runs", "canonical", args.dataset)
-    metrics = args.metrics or next(iter(glob.glob(os.path.join(work, "runs", "*", "*",
-                                                                "metrics.jsonl"))), None)
+    metrics = next(iter(glob.glob(os.path.join(work, "runs", "*", "*", "metrics.jsonl"))), None)
     if metrics is None:
         raise SystemExit(f"no metrics.jsonl under {work}/runs")
     rows = load_rows(metrics)
-    tpu_rows = load_rows(os.path.join(ROOT, args.tpu_metrics or spec["metrics"]))
+    tpu_rows = load_rows(os.path.join(ROOT, spec["metrics"]))
     run, tpu = (summarize(r, spec["milestones"]) for r in (rows, tpu_rows))
+    run["final_best"] = ([v for _, v in by_tag(rows).get("info/Best_dice", [])] or [None])[-1]
     out = dict(dataset=args.dataset, metrics=metrics, port=run, tpu=tpu,
                loss_windows=dict(port=loss_windows(rows, spec["loss_windows"]),
                                  tpu=loss_windows(tpu_rows, spec["loss_windows"])))
     relay_path = os.path.join(work, "relay.jsonl")
-    if args.metrics and not args.work:
-        return out  # one file: summarize_canon20k's rows and the loss windows
     relay = load_rows(relay_path) if os.path.exists(relay_path) else []
     legs = leg_rows(relay, rows, work)
     test = next((r for r in reversed(relay) if r["kind"] == "test"), None)
@@ -244,8 +244,6 @@ def show(out: dict) -> None:
         if r["rss"]:
             print(f"host RSS GB min/median/max {name}: {r['rss'][0]:.3f} / {r['rss'][1]:.3f} / "
                   f"{r['rss'][2]:.3f}")
-    if "legs" not in out:
-        return
     print(f"card: {out['card']}; NaN/Inf-skipped steps: {out['skips']}")
     for l in out["legs"]:
         print(f"  leg {l['leg']} {l['kind']} rc={l['rc']}{' (killed)' if l['killed'] else ''}: "
@@ -265,9 +263,6 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset", choices=sorted(RECORD), default="pancreas")
     p.add_argument("--work", type=str, default=None)
-    p.add_argument("--metrics", type=str, default=None,
-                   help="a metrics.jsonl to read instead of the one under --work")
-    p.add_argument("--tpu_metrics", type=str, default=None)
     p.add_argument("--reach", type=int, default=None,
                    help="the iteration gate (a) asks for (20000 Pancreas, 3400 BraTS)")
     p.add_argument("--out", type=str, default=None)

@@ -20,10 +20,12 @@ Tolerances, stated before the first run:
     tests/test_torch_train_step.py's path-scaled tolerances, with the
     teacher noise, the dropout masks and the kink sides of each JAX step
     shared (as tests/test_torch_ablation.py shares them);
-  * the driver's own relay on the CPU: a fresh leg SIGKILLed after a save,
-    pack, unpack into an empty run directory (each tensor bit-equal),
-    `--resume auto` to the end and the test leg; the relay log's lines
-    and the summariser's gate (a);
+  * the driver's own relay on the CPU: a fresh leg SIGKILLed after a save
+    and a best, pack, unpack into an empty run directory (each tensor of
+    the state and of the best model bit-equal), the test leg on the
+    carried best, `--resume auto` to the end and the test leg again; the
+    relay log's lines and the summariser's gate (a); the kill at the first
+    logged iteration >= kill_at, a log line written in two parts too;
   * (ii) on bench_results/r05_canonical20k_metrics.jsonl (and the BraTS
     relay's file), the port's summariser gives the iterations reached,
     the validation count, best val Dice, the milestone Dice and host RSS
@@ -101,9 +103,9 @@ class _Crash(Exception):
 
 
 def _relay_args(root, work, *extra):
-    return driver.build_parser().parse_args(
+    return driver.parse_args(
         ["--dataset", "pancreas", "--leg", "fresh", "--device", "cpu", "--root", root,
-         "--work", work, "--max_iterations", str(RELAY_ITERS), "--save_every", "2",
+         "--work", work, "--", "--max_iterations", str(RELAY_ITERS), "--save_every", "2",
          "--val_every", "2", "--labelnum", "2", "--patch_size", *map(str, PATCH),
          "--batch_size", "4", "--labeled_bs", "2", *extra])
 
@@ -251,13 +253,26 @@ def test_relay_resumed_steps_match_jax(relay):
 # ---------------------------------------------------------------- the driver's relay
 
 
-def _tiny(tmp_path, *extra):
+TINY_TRAIN = ["--patch_size", "32", "32", "16", "--batch_size", "2", "--labeled_bs", "1",
+              "--labelnum", "2", "--max_iterations", "12", "--save_every", "4", "--val_every", "4",
+              "--compute_dtype", "float32"]
+TINY_TEST = ["--labelnum", "2", "--max_iterations", "12", "--patch_size", "32", "32", "16",
+             "--stride_xy", "16", "--stride_z", "8", "--compute_dtype", "float32"]
+
+
+def _tiny(tmp_path, *extra, cli=TINY_TRAIN):
     return ["--dataset", "pancreas", "--device", "cpu", "--work", str(tmp_path / "work"),
-            "--n_train", "4", "--n_test", "1", "--shape", "40", "40", "24",
-            "--patch_size", "32", "32", "16", "--batch_size", "2", "--labeled_bs", "1",
-            "--labelnum", "2", "--max_iterations", "12", "--save_every", "4", "--val_every", "4",
-            "--test_patch", "32", "32", "16", "--test_stride", "16", "8",
-            "--compute_dtype", "float32", *extra]
+            "--n_train", "4", "--n_test", "1", "--shape", "40", "40", "24", *extra, "--", *cli]
+
+
+def _load(path):
+    return torch.load(path, weights_only=True)
+
+
+def _assert_same_tensors(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_driver_relay_with_sigkill(tmp_path):
@@ -268,37 +283,62 @@ def test_driver_relay_with_sigkill(tmp_path):
 
 
 def _driver_relay(tmp_path):
+    """Fresh, SIGKILLed after the save at 4 and the best of the validation
+    at 4; pack; unpack on an empty run directory; the test leg at once, on
+    the carried best (the best falls before the pack); resume to the end;
+    the test leg again."""
     work = tmp_path / "work"
     first = driver.main(_tiny(tmp_path, "--leg", "fresh", "--kill_at", "5"))
     assert first["killed"] and first["rc"] == -9 and first["first_iter"] == 1
     assert 5 <= first["last_iter"] < 12
     carry = str(tmp_path / "carry.zip")
     packed = driver.main(_tiny(tmp_path, "--leg", "pack", "--carry", carry))
-    snapshot = driver.snapshot_path(driver.build_parser().parse_args(_tiny(tmp_path, "--leg",
-                                                                           "pack")))
-    original = torch.load(os.path.join(snapshot, packed["file"]), weights_only=True)
+    snapshot = driver.snapshot_path(driver.parse_args(_tiny(tmp_path, "--leg", "pack")))
+    best_path = checkpoint.best_checkpoint_path(snapshot, "unet_3D")
+    original, best = _load(os.path.join(snapshot, packed["file"])), _load(best_path)
+    assert packed["best_step"] == best["meta"]["step"] == 4 and best["meta"]["best_dice"] > 0
     shutil.rmtree(work / "runs")
-    driver.main(_tiny(tmp_path, "--leg", "unpack", "--carry", carry))
-    os.remove(carry)
-    restored = torch.load(os.path.join(snapshot, packed["file"]), weights_only=True)
+    unpacked = driver.main(_tiny(tmp_path, "--leg", "unpack", "--carry", carry))
+    for path in (carry, driver.best_carry(carry)):
+        os.remove(path)
+    restored = _load(os.path.join(snapshot, packed["file"]))
     assert restored["step"] == original["step"] and restored["meta"] == original["meta"]
     for part in ("model", "teacher", "momentum"):
-        assert restored[part].keys() == original[part].keys()
-        for k in original[part]:
-            assert torch.equal(restored[part][k], original[part][k]), (part, k)
+        _assert_same_tensors(restored[part], original[part])
+    restored_best = _load(best_path)
+    assert unpacked["best_step"] == 4 and restored_best["meta"] == best["meta"]
+    _assert_same_tensors(restored_best["model"], best["model"])
+    carried = driver.main(_tiny(tmp_path, "--leg", "test", cli=TINY_TEST))
+    assert carried["best_step"] == 4 and carried["tested"] == os.path.basename(best_path)
+    assert carried["best_dice"] == carried["logged_best"] == best["meta"]["best_dice"]
     second = driver.main(_tiny(tmp_path, "--leg", "resume", "--time_budget_s", "600"))
     assert second["resumed_step"] == packed["step"] == first["saved_after"][0]
     assert second["first_iter"] == packed["step"] + 1 and second["last_iter"] == 12
     assert second["rc"] == 0 and not second["killed"]
-    test = driver.main(_tiny(tmp_path, "--leg", "test"))
+    test = driver.main(_tiny(tmp_path, "--leg", "test", cli=TINY_TEST))
     assert len(test["cases"]) == 1 and all(np.isfinite(test["mean"]))
+    assert test["best_dice"] == test["logged_best"] >= carried["best_dice"]
     with open(work / "relay.jsonl") as f:
-        assert [json.loads(line)["kind"] for line in f] == ["fresh", "resume", "test"]
+        assert [json.loads(line)["kind"] for line in f] == ["fresh", "test", "resume", "test"]
     out = table.main(["--dataset", "pancreas", "--work", str(work), "--reach", "12"])
     assert out["gates"]["a"]["met"], out["gates"]["a"]
     assert [(l["first"], l["last"]) for l in out["legs"]] == \
         [(1, first["last_iter"]), (packed["step"] + 1, 12)]
     assert out["skips"] == 0
+    assert out["test"]["best_dice"] == out["port"]["final_best"]
+
+
+def test_driver_kills_at_the_first_iteration_past_kill_at(tmp_path, monkeypatch):
+    """run_leg reads its leg's log line by line, a line written in two parts
+    too, and kills at the first iteration >= kill_at."""
+    script = ("import sys, time\n"
+              "for i in range(1, 400):\n"
+              "    sys.stdout.write(f'Iteration {i} '); sys.stdout.flush(); time.sleep(0.01)\n"
+              "    sys.stdout.write(': Loss : 1.0\\n'); sys.stdout.flush(); time.sleep(0.01)\n")
+    args = driver.parse_args(_tiny(tmp_path, "--leg", "fresh"))
+    out = driver.run_leg(args, ["-c", script], str(tmp_path / "leg.log"), kill_at=5)
+    assert out["killed"] and out["rc"] == -9
+    assert 5 <= out["last_iter"] < 5 + 40  # 0.1 s a poll, 50 iterations a second
 
 
 # ---------------------------------------------------------------- (ii) the summariser
@@ -382,7 +422,7 @@ def _fake_leg(**kw):
 def fake_run(tmp_path, monkeypatch):
     """A tiny tree and a run directory saved at 2 (best 0.3) and 4 (best
     0.5 logged at 4), with the legs themselves faked."""
-    args = driver.build_parser().parse_args(_tiny(tmp_path, "--leg", "resume"))
+    args = driver.parse_args(_tiny(tmp_path, "--leg", "resume"))
     driver.ensure_tree(args)
     snapshot = driver.snapshot_path(args)
     os.makedirs(snapshot)
