@@ -14,13 +14,15 @@ training, the preprocess CLIs, the JAX package's trained Pancreas
 checkpoint's test and the SSL ablation, every training path twice, whose
 reruns must be bit-identical, the host loop's settings (the pipelined
 loop against the synchronous one, gradient rematerialisation, the narrow
-wire dtypes), and last the canonical relay driver (legs killed, resumed
-and tested through the CLIs).
+wire dtypes), the canonical relay driver (legs killed, resumed and tested
+through the CLIs), and last JAX's random streams (the threefry kernel, and
+the canonical run's first steps against the TPU's logged ones).
 Phases, each timed on its own line:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build K1 (ops/csrc/folded_conv3.cu), K1-dW (ops/csrc/folded_conv3_dw.cu)
-     and K2 (ops/csrc/fecl_fused.cu), one nvcc each, in parallel, printing
+  2. build K1 (ops/csrc/folded_conv3.cu), K1-dW (ops/csrc/folded_conv3_dw.cu),
+     K2 (ops/csrc/fecl_fused.cu) and the threefry kernel
+     (ops/csrc/threefry.cu), one nvcc each, in parallel, printing
      ptxas's registers, shared memory, spills and any wgmma or setmaxnreg
      warning per kernel instance; the SASS (cuobjdump) of K1, K1-dW and K2
      must hold tensor-core MMA (HMMA) instructions in every instance of
@@ -258,7 +260,9 @@ Phases, each timed on its own line:
  41. remat: one full-width Pancreas float32 step (_seeded_case) with
      --remat full against none from one state: the loss within rtol 1e-6,
      every parameter within 1e-6, every running stat torch.equal, the
-     dropout generator left in the same state, and a lower peak of
+     recompute's dropout drawn from the forward's keys (the keys of the
+     step's dropout calls those of the step without remat, the student's
+     twice), and a lower peak of
      torch.cuda.max_memory_allocated; the same for one VNet step (31
      BatchNorms), and for one bf16 UNet3D step at the bf16 gate (each leaf
      within 2 x the leaf's |bf16 - float32| of the step without remat);
@@ -270,14 +274,26 @@ Phases, each timed on its own line:
      Pancreas relay, at full width (patch 112x112x96, batch 8 of which 4
      labeled, bf16, fetch_ahead 1, step_diagnostics cadence) on the
      canonical tree cut to 8 + 2 volumes of (128, 128, 112), labelnum 4
-     and val_every 20, max_iterations 80 (phase_canonical_relay lists the
+     and val_every 20, max_iterations 60 (phase_canonical_relay lists the
      cuts): a fresh leg SIGKILLed at iteration >= 45, a --resume auto leg
-     to 80 that must start at 41 with its best-so-far, and the test leg on
+     to 60 that must start at 41 with its best-so-far, and the test leg on
      the 2 volumes; each leg a subprocess whose launches are counted per
      step (counted_leg): 16 / 7 / 8 of K1-bf16 / dx / K1-dW-bf16 a step
      and no float32 instance; the test leg's K1-bf16 launches 8 a chunk;
      the relay log's return codes -9, 0, 0;
- 44. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
+ 44. jax_stream: (i) the threefry kernel against its plain torch version
+     at the canonical step's shapes (phase_jax_stream_kernels: the teacher
+     noise over (8, 112, 112, 96, 1) within JS_NOISE_ULP ulp, the dropout
+     forward and backward at the centre and the folded decoder map, float32
+     and bf16, bit-equal, whole and over a rank's rows), timed beside its
+     int32-operation bound; (ii) the TPU's first steps
+     (phase_jax_stream_trainer): the canonical Pancreas run's Trainer at
+     seed 1337 for JS_ITERS iterations in bf16 on the full canonical tree,
+     one launch of the noise kernel and 6 of dropout a step, step 1's
+     scalars against bench_results/r05_canonical20k_metrics.jsonl's within
+     max(2 x the port's bf16-float32 difference, 1e-3 x |r05|), the seed-1338
+     control missing that bound, |port / r05 - 1| of info/loss at each step;
+ 45. a `{"kernels": [...]}` line, one entry per kernel and path (K1 in
      eval, K1 forward, K1 dx and K1-dW in Pancreas training, K1 forward,
      dx and K1-dW and K2 forward and backward in ISLES training, K1 in
      ISLES whole-volume evaluation, K1 forward, dx and K1-dW in BraTS
@@ -285,7 +301,8 @@ Phases, each timed on its own line:
      instances in bf16 eval, Pancreas and VNet bf16 training, with
      bound_kind "bf16"; K1 and K1-bf16 in trained_eval; K1 forward, dx and
      K1-dW in the SSL ablation; the bf16 instances in the canonical relay's
-     training and test legs), each with that
+     training and test legs; the threefry noise and dropout, float32 and
+     bf16, in jax_stream, with bound_kind "int32"), each with that
      path's launch count and the sums
      over its shapes; then `{"ok": true, "device": {...}}` last.
 
@@ -1892,22 +1909,66 @@ def phase_group_eval(torch, device):
     return out
 
 
-def _dp_step_rank(rank, world, device, cases):
-    """One rank of phase dp_train's step check: each case's step twice from
-    its initial state (the first warms up), the second timed, with this
-    rank's K1 launches. Defined here so that spawned ranks import only this
-    script and the port."""
+def _dp_step_rank(rank, world, device, cases, sides_dir):
+    """One rank of phase dp_train's step check (_dp_steps), with this rank's
+    K1 launches. Defined here so that spawned ranks import only this script
+    and the port."""
     import torch
 
-    return _dp_steps(torch, device, cases, rank, world)
+    return _dp_steps(torch, device, cases, rank, world, sides_dir)
 
 
-def _dp_steps(torch, device, cases, rank=0, world=1):
+def _save_sides(torch, path, kinks, device):
+    """A KinkSides record's ReLU sides, bit-packed on `device`, and its
+    max-pool sides (int8) into one .npz."""
+    import numpy as np
+
+    bit = (1 << torch.arange(8, device=device, dtype=torch.int32)).to(torch.uint8)
+    arrays = {}
+    for i, side in enumerate(kinks._relu):
+        flat = side.reshape(-1).to(device=device, dtype=torch.uint8)
+        flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 8))
+        arrays[f"relu{i}"] = (flat.view(-1, 8) * bit).sum(1, dtype=torch.uint8).cpu().numpy()
+        arrays[f"relu{i}_shape"] = np.array(side.shape)
+    for i, side in enumerate(kinks._pool):
+        arrays[f"pool{i}"] = side.numpy().astype(np.int8)
+    np.savez(path, n_relu=len(kinks._relu), n_pool=len(kinks._pool), **arrays)
+
+
+def _rank_sides(torch, path, rows, device):
+    """This rank's rows of the sides _save_sides wrote, unpacked on
+    `device`, as a KinkSides to share."""
+    import numpy as np
+
+    from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
+
+    shifts = torch.arange(8, device=device, dtype=torch.uint8)
+    index = torch.as_tensor(np.asarray(rows), device=device)
+    relu, pool = [], []
+    with np.load(path) as f:
+        for i in range(int(f["n_relu"])):
+            shape = tuple(int(d) for d in f[f"relu{i}_shape"])
+            packed = torch.from_numpy(f[f"relu{i}"]).to(device)
+            bits = ((packed[:, None] >> shifts) & 1).reshape(-1)[:math.prod(shape)]
+            relu.append(bits.view(shape).bool().index_select(0, index))
+        for i in range(int(f["n_pool"])):
+            pool.append(torch.from_numpy(f[f"pool{i}"][rows].astype(np.int64)).to(device))
+    return KinkSides.given(relu, pool, [])
+
+
+def _dp_steps(torch, device, cases, rank=0, world=1, sides_dir=None):
+    """Each case's step three times from its initial state: a warm-up, the
+    timed one, and the one compared, whose kink sides (ReLUs, max pools:
+    train/device_check.py's KinkSides) one process records into `sides_dir`
+    and each rank takes its rows of, within that margin. Returns the last's
+    scalars, parameters, running stats and K1 launches, and the timed ms."""
     from dycon_paper_replication_tpu_torch import parallel
     from dycon_paper_replication_tpu_torch.config import make_config
     from dycon_paper_replication_tpu_torch.models import build_model
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
         folded_conv3, folded_conv3_dw, folded_conv3_dx)
+    from dycon_paper_replication_tpu_torch.ops import threefry
+    from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
     from dycon_paper_replication_tpu_torch.train.state import create_train_state
     from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
 
@@ -1920,18 +1981,28 @@ def _dp_steps(torch, device, cases, rank=0, world=1):
         batch = parallel.shard_batch(shard, case["batch"])
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         step = build_train_step(cfg, lambda s: cfg.base_lr, shard)
-        for rep in range(2):
+        sides_path = None if sides_dir is None else os.path.join(sides_dir, f"{name}.npz")
+        for rep in range(3):
             student = build_model(case["net_cfg"])
             student.load_state_dict(case["state"])
             state = create_train_state(student.to(device))
-            gen = torch.Generator(device=device).manual_seed(SEED)
             for w in (folded_conv3, folded_conv3_dx, folded_conv3_dw):
                 w.launches = 0
+            kinks, context = None, contextlib.nullcontext()
+            if rep == 2 and sides_path is not None:
+                kinks = (KinkSides() if shard is None
+                         else _rank_sides(torch, sides_path, shard.rows, device))
+                context = kinks.record() if shard is None else kinks.share()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            vec, _ = step(state, batch, gen, StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
+            with context:
+                vec, _ = step(state, batch, threefry.key(SEED),
+                              StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            if rep == 1:
+                ms = (time.perf_counter() - t0) * 1e3
+        if kinks is not None and shard is None:
+            _save_sides(torch, sides_path, kinks, device)
         models = (("student", state.student), ("teacher", state.teacher))
         out[name] = dict(vec=vec.cpu(), ms=ms,
                          params={f"{m}.{k}": v.detach().cpu() for m, mod in models
@@ -1973,9 +2044,13 @@ def phase_dp_train(torch, device, tmp, root):
     process at the same seed; then one step on the global batch of
     TRAIN_BATCH in two spawned gloo ranks on the card (NCCL cannot put two
     ranks on one GPU; gloo all-reduces the CUDA tensors) against the same
-    step in one process, for the UNet3D and the VNet: loss rtol 2e-5,
-    parameters atol 1e-5 + rtol 1e-4 (tests/test_train.py's DP test), the
-    BatchNorm running stats within 1e-5 + STATS_REL x max|tensor|."""
+    step in one process, for the UNet3D and the VNet, the ranks taking the
+    one-process step's kink sides (_dp_steps): loss rtol 2e-5, parameters
+    atol 1e-5 + rtol 1e-4 (tests/test_train.py's DP test), the BatchNorm
+    running stats within 1e-5 + STATS_REL x max|tensor|. Without the shared
+    sides, a ReLU input within float32 noise of 0 can take the other side
+    in a rank: with the masks of key 0 the VNet's enc0.conv0.w then differed
+    by 1.57e-5, over its elementwise atol 1e-5 + rtol 1e-4."""
     from dycon_paper_replication_tpu_torch import parallel
     from dycon_paper_replication_tpu_torch.config import config_from_args
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import (
@@ -2037,9 +2112,11 @@ def phase_dp_train(torch, device, tmp, root):
           f"within atol 1e-5 + rtol 1e-4 (max |diff| {worst:.3g})")
 
     cases = {model: _seeded_case(model) for model in ("unet_3D", "vnet")}
-    one = _dp_steps(torch, device, cases)
+    sides_dir = os.path.join(tmp, "dp_sides")
+    os.makedirs(sides_dir, exist_ok=True)
+    one = _dp_steps(torch, device, cases, sides_dir=sides_dir)
     two = parallel.launch(_dp_step_rank, 2, device="cuda", devices=[str(device)] * 2,
-                          backend="gloo", args=(cases,), timeout=600)
+                          backend="gloo", args=(cases, sides_dir), timeout=600)
     out = {}
     for model in cases:
         g, w = two[model], one[model]
@@ -2486,7 +2563,8 @@ def phase_ssl_ablation(torch, tmp):
 
 
 DET_STEPS = 3  # each run of phase determinism: 3 steps of a train CLI's Trainer
-DET_WARM, DET_TIMED = 2, 3  # the mode's cost: steps per setting, warm-up and timed
+# the mode's cost: steps per setting, warm-up and timed (2, 3 before phase jax_stream)
+DET_WARM, DET_TIMED = 1, 2
 
 
 def _leaves(state):
@@ -2547,6 +2625,7 @@ def _mode_ms(torch, trainer):
     steps each, the timed ones returned. Leaves the mode on, and the fill."""
     import torch.utils.deterministic
 
+    from dycon_paper_replication_tpu_torch.ops import threefry
     from dycon_paper_replication_tpu_torch.train.step import StepScalars
 
     epochs = trainer.loader.epochs(1)
@@ -2554,7 +2633,7 @@ def _mode_ms(torch, trainer):
     epochs.close()
     beta, pos, neg = trainer._epoch_scalars(0)
     scalars = StepScalars(beta, trainer._consistency_weight(0), pos, neg)
-    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    key = threefry.key(SEED)
     out = {}
     for name, mode, fill in DET_MODES:
         torch.use_deterministic_algorithms(mode)
@@ -2563,7 +2642,7 @@ def _mode_ms(torch, trainer):
         for _ in range(DET_WARM + DET_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainer.train_step(trainer.state, batch, gen, scalars)[0].tolist()
+            trainer.train_step(trainer.state, batch, key, scalars)[0].tolist()
             times.append((time.perf_counter() - t0) * 1e3)
         out[name] = times[DET_WARM:]
     torch.use_deterministic_algorithms(True)
@@ -2602,6 +2681,7 @@ def _control(torch, device):
     first state tensor that differs and how many do."""
     from dycon_paper_replication_tpu_torch.config import make_config
     from dycon_paper_replication_tpu_torch.models import build_model
+    from dycon_paper_replication_tpu_torch.ops import threefry
     from dycon_paper_replication_tpu_torch.train.state import create_train_state
     from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
 
@@ -2618,8 +2698,8 @@ def _control(torch, device):
                 student = build_model(case["net_cfg"])
                 student.load_state_dict(case["state"])
                 state = create_train_state(student.to(device))
-                gen = torch.Generator(device=device).manual_seed(SEED)
-                step(state, batch, gen, StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
+                step(state, batch, threefry.key(SEED),
+                     StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3))
                 runs.append(_leaves(state))
             name, diff, n = _first_difference(torch, *runs)
             print(f"determinism control {tag}: mode {'on' if mode else 'off'}: "
@@ -2762,7 +2842,8 @@ def phase_determinism(torch, device, tmp, roots, ablation):
     return cost
 
 
-HOST_LOOP_ITERS = dict(brats=32, vnet_bf16=24, ablation_dycon=24)  # a run of phase host_loop
+# a run of phase host_loop (32 / 24 / 24 before phase jax_stream was added)
+HOST_LOOP_ITERS = dict(brats=20, vnet_bf16=16, ablation_dycon=16)
 HOST_LOOP_ORDER = (0, 1, 1, 0)  # the fetch_ahead settings' runs, in turn, in one process
 HOST_LOOP_WARM = 4  # left out of its timings: the first (synchronous, train-HD95) and warm-up
 
@@ -2888,9 +2969,11 @@ def phase_remat(torch, device):
 
     from dycon_paper_replication_tpu_torch.config import make_config
     from dycon_paper_replication_tpu_torch.models import build_model
+    from dycon_paper_replication_tpu_torch.ops import threefry
     from dycon_paper_replication_tpu_torch.train.state import create_train_state
     from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
 
+    real_dropout = threefry.dropout
     scalars = StepScalars(5.0, 0.1 * math.exp(-5.0), 1.3, 0.3)
     unet = _seeded_case("unet_3D")
     cases = (("pancreas", unet, "float32"), ("vnet", _seeded_case("vnet"), "float32"),
@@ -2908,16 +2991,22 @@ def phase_remat(torch, device):
                 student = build_model(case["net_cfg"])
                 student.load_state_dict(case["state"])
                 state = create_train_state(student.to(device))
-                gen = torch.Generator(device=device).manual_seed(SEED)
+                keys = []
+
+                def dropout(x, k, keep, rows=None):
+                    keys.append(tuple(int(w) for w in k))
+                    return real_dropout(x, k, keep, rows)
+
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                vec, _ = step(state, batch, gen, scalars)
+                with mock.patch.object(threefry, "dropout", dropout):
+                    vec, _ = step(state, batch, threefry.key(SEED), scalars)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
             results[tag, remat] = dict(loss=float(vec[0]), skipped=float(vec[-1]), ms=ms,
                                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
-                                       leaves=_leaves(state), gen=gen.get_state())
+                                       leaves=_leaves(state), keys=keys)
             del state, student
         none, full = results[tag, "none"], results[tag, "full"]
         params = [k for k in none["leaves"] if not k.startswith("momentum.")
@@ -2933,8 +3022,10 @@ def phase_remat(torch, device):
         _check(not none["skipped"] and not full["skipped"], f"remat {tag}: a step was skipped")
         _check(all(torch.equal(full["leaves"][k], none["leaves"][k]) for k in stats),
                f"remat {tag}: the running stats differ")
-        _check(torch.equal(full["gen"], none["gen"]),
-               f"remat {tag}: the generator's state after the step differs")
+        half = len(none["keys"]) // 2  # the teacher's dropout calls, then the student's
+        _check(half > 0 and full["keys"] == none["keys"] + none["keys"][half:],
+               f"remat {tag}: the recompute's dropout keys {full['keys']} are not the "
+               f"forward's {none['keys']}")
         _check(full["peak"] < none["peak"], f"remat {tag}: peak {full['peak']} GiB with remat "
                f"is not below {none['peak']} GiB")
         if dtype == "float32":
@@ -2949,7 +3040,7 @@ def phase_remat(torch, device):
             _check(not over and abs(full["loss"] - none["loss"]) <= 2 * loss_yard,
                    f"remat {tag}: over the bf16 gate: {over[:4]}, loss {full['loss']} vs "
                    f"{none['loss']} (yardstick {loss_yard})")
-    return {k: {n: v for n, v in r.items() if n not in ("leaves", "gen")}
+    return {k: {n: v for n, v in r.items() if n not in ("leaves", "keys")}
             for k, r in results.items()}
 
 
@@ -3007,7 +3098,7 @@ def phase_wire(torch, tmp, root):
 # on a cut of the canonical Pancreas tree (CANONICAL_TREE's shape and seed)
 RELAY_TREE = dict(n_train=8, n_test=2)
 RELAY_LABELNUM, RELAY_VAL_EVERY, RELAY_SAVE_EVERY = 4, 20, 20
-RELAY_KILL_AT, RELAY_ITERS = 45, 80
+RELAY_KILL_AT, RELAY_ITERS = 45, 60  # 45, 80 before phase jax_stream was added
 
 
 def counted_leg(out_path, module, argv):
@@ -3079,19 +3170,19 @@ def phase_canonical_relay(torch, tmp):
     Cuts of the protocol: the canonical tree (CANONICAL_TREE's shape and
     seed) cut to 8 + 2 volumes; --labelnum 4 (the canonical 12 needs more
     than 8 volumes); --val_every 20 (a best checkpoint exists before the
-    test); --save_every 20; --max_iterations 80 (the schedules are those of
-    an 80-iteration run). Legs: fresh, SIGKILLed at iteration >= 45; resume
-    (`--resume auto`) to 80; test (cli.test_pancreas, patch 96^3, stride
+    test); --save_every 20; --max_iterations 60 (the schedules are those of
+    a 60-iteration run). Legs: fresh, SIGKILLed at iteration >= 45; resume
+    (`--resume auto`) to 60; test (cli.test_pancreas, patch 96^3, stride
     16/4, bf16) on the 2 test volumes. Gates, each a failure of the phase:
       * the relay log: return codes -9 (killed by the driver), 0, 0; leg 1
         from iteration 1 to >= 45; leg 2 resumed from the save at 40,
-        starting at 41, ending at 80, carrying the best-so-far logged by
+        starting at 41, ending at 60, carrying the best-so-far logged by
         iteration 40 (which the driver also checks); the test leg ran on
         the best checkpoint, whose best Dice is the run's logged best;
       * launches, counted in each leg's process with the counts set to 0
         before a step and read after it (counted_leg): every step of both
         train legs launches 16 K1-bf16, 7 dx and 8 K1-dW-bf16 and no float32
-        instance; leg 2 runs 40 steps; the test leg launches K1-bf16 8 times
+        instance; leg 2 runs 20 steps; the test leg launches K1-bf16 8 times
         a forward chunk and no float32 K1;
       * the test's Dice, Jaccard, HD95 and ASD finite for both volumes.
     Returns the launch sums of the train legs' steps and the test leg's
@@ -3173,6 +3264,220 @@ def phase_canonical_relay(torch, tmp):
     return dict(launches=sums, test_k1=total["k1_bf16"])
 
 
+# phase jax_stream: the threefry kernel (ops/csrc/threefry.cu) at the
+# canonical step's shapes (the Pancreas defaults, folded UNet3D): the teacher
+# noise over the batch's images, and dropout at its two call sites (the
+# centre, and the last decoder map, which the folded model drops out in its
+# folded layout)
+JS_NOISE_SHAPE = (TRAIN_BATCH, *TRAIN_PATCH, 1)
+JS_DROPOUT_SHAPES = (("centre", (TRAIN_BATCH, 7, 7, 6, 256)),
+                     ("decoder", (TRAIN_BATCH, 56, 56, 48, 128)))
+JS_ROWS = (2, 3, 6, 7)  # rank 1 of 2's rows of a batch of 8, 4 labeled (parallel.Shard)
+# int32 operations an element: the hash's 72 (2 + 20 rounds x 3 + 5
+# injections x 2), out0 ^ out1, and the uniform's shift and or; at 64 int32
+# lanes an SM x 132 SMs x 1.98 GHz (an instruction a lane a cycle: the H100
+# SXM's published 33.5 TOPS counts an IMAD as two)
+JS_INT_OPS, JS_INT_RATE = 75, 64 * 132 * 1.98e9
+JS_NOISE_ULP = 4  # the kernel's noise against the plain version where erfinv rounds differently
+JS_SEED, JS_CONTROL_SEED, JS_ITERS = 1337, 1338, 20
+JS_SCALARS = ("loss", "f_loss", "u_loss", "loss_ce", "loss_dice", "consistency_loss")
+JS_REPLACES = {
+    "threefry_noise": "dycon_paper_replication_tpu/train/step.py:195 (jax.random.normal; XLA "
+                      "threefry, no pallas_call)",
+    "threefry_dropout": "dycon_paper_replication_tpu/models/layers.py:212 (jax.random.bernoulli;"
+                        " XLA threefry, no pallas_call)"}
+JS_SOURCE = "dycon_paper_replication_tpu_torch/ops/csrc/threefry.cu"
+
+
+def _ulp_gap(torch, a, b):
+    """Elementwise distance in float32 ulps (ordered integer images)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def phase_jax_stream_kernels(torch, device, peaks):
+    """(i) The threefry kernel against its plain torch version on the card:
+    the noise bit-equal or within JS_NOISE_ULP ulp, the dropout forward and
+    backward bit-equal in float32 and bf16, whole and over a rank's rows
+    (JS_ROWS, also against those rows of the whole draw). Times each (kernel,
+    plain) and its bound: the larger of the bytes (input read once, output
+    written once) at the card's memory rate and JS_INT_OPS int32 operations
+    an element at JS_INT_RATE. Returns the rows of the kernels' JSON line."""
+    from dycon_paper_replication_tpu_torch.ops import threefry
+
+    key = threefry.split(threefry.key(JS_SEED), 3)[0]
+    rows = {}
+    got = threefry.teacher_noise.launch(key, JS_NOISE_SHAPE, None, device)
+    want = threefry.noise_plain(key, JS_NOISE_SHAPE, device=device)
+    torch.cuda.synchronize()
+    gap, equal = _ulp_gap(torch, got, want), float((got == want).double().mean())
+    part = threefry.teacher_noise.launch(key, JS_NOISE_SHAPE, JS_ROWS, device)
+    part_equal = torch.equal(part, got[list(JS_ROWS)])
+    n = math.prod(JS_NOISE_SHAPE)
+    t_bytes, t_ops = 4 * n / peaks[2] * 1e3, JS_INT_OPS * n / JS_INT_RATE * 1e3
+    rows["noise"] = dict(
+        shape=list(JS_NOISE_SHAPE), max_ulp=gap, equal_share=equal, rows_equal=part_equal,
+        max_abs_err=float((got - want).abs().max()),
+        ms=_time_ms(torch, lambda: threefry.teacher_noise.launch(key, JS_NOISE_SHAPE, None,
+                                                                 device)),
+        plain_ms=_time_ms(torch, lambda: threefry.noise_plain(key, JS_NOISE_SHAPE,
+                                                              device=device)),
+        bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print("jax_stream noise " + json.dumps(rows["noise"]), flush=True)
+    _check(gap <= JS_NOISE_ULP and part_equal,
+           f"jax_stream noise: {gap} ulp from the plain version, rows equal {part_equal}")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        for site, shape in JS_DROPOUT_SHAPES:
+            dkey = threefry.split(key, 2)[1]
+            x = torch.randn(shape, device=device, generator=gen).to(dtype)
+            dy = torch.randn(shape, device=device, generator=gen).to(dtype)
+            keep = 0.7
+            xr = x.requires_grad_(True)
+            y = threefry.DropoutFn.apply(xr, dkey, keep, None)
+            (dx,) = torch.autograd.grad(y, xr, dy)
+            x = x.detach()
+            want_y = threefry.dropout_plain(x, dkey, keep)
+            want_dx = threefry.dropout_plain(dy, dkey, keep)
+            part = threefry.dropout_kernel.launch(x[list(JS_ROWS)].contiguous(), dkey, keep,
+                                                  JS_ROWS)
+            torch.cuda.synchronize()
+            ok = (torch.equal(y, want_y) and torch.equal(dx, want_dx)
+                  and torch.equal(part, want_y[list(JS_ROWS)])
+                  and torch.equal(part, threefry.dropout_plain(x[list(JS_ROWS)].contiguous(),
+                                                               dkey, keep, JS_ROWS)))
+            kept = float((want_y != 0).double().mean())
+            n = math.prod(shape)
+            size = torch.tensor([], dtype=dtype).element_size()
+            t_bytes, t_ops = 2 * size * n / peaks[2] * 1e3, JS_INT_OPS * n / JS_INT_RATE * 1e3
+            name = f"dropout_{site}_{str(dtype).removeprefix('torch.')}"
+            rows[name] = dict(
+                shape=list(shape), dtype=str(dtype), equal=ok, kept_share=kept,
+                max_abs_err=float((y.detach().float() - want_y.float()).abs().max()),
+                ms=_time_ms(torch, lambda: threefry.dropout_kernel.launch(x, dkey, keep)),
+                plain_ms=_time_ms(torch, lambda: threefry.dropout_plain(x, dkey, keep)),
+                library_dropout_ms=_time_ms(torch, lambda: torch.nn.functional.dropout(
+                    x, 1 - keep, training=True)),
+                bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            print(f"jax_stream {name} " + json.dumps(rows[name]), flush=True)
+            _check(ok and abs(kept - keep) < 0.01,
+                   f"jax_stream {name}: not equal to the plain version (kept {kept})")
+    return rows
+
+
+def _r05_steps(n):
+    """The TPU run's logged step scalars at steps 1..n
+    (bench_results/r05_canonical20k_metrics.jsonl): {step: {name: value}}."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_results",
+                        "r05_canonical20k_metrics.jsonl")
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            name = rec["tag"].removeprefix("info/")
+            if rec["tag"].startswith("info/") and name in JS_SCALARS and rec["step"] <= n:
+                out.setdefault(rec["step"], {}).setdefault(name, rec["value"])
+    return out
+
+
+def phase_jax_stream_trainer(torch, tmp):
+    """(ii) The TPU's first steps: the Pancreas train CLI's Trainer at the
+    canonical run's flags (scripts/exp_canonical_20k_r5.sh: the full tree of
+    62 + 20 volumes of (128, 128, 112) at seed 1, --max_iterations 20000,
+    bf16, --fetch_ahead 1 --step_diagnostics cadence) at seed JS_SEED, for
+    JS_ITERS iterations (its schedules those of the 20000-iteration run),
+    with the threefry kernel's launches counted a step. Then step 1 alone in
+    float32 at JS_SEED, and in bf16 at JS_CONTROL_SEED. Gates: every step
+    launches the noise kernel once and dropout 6 times (the teacher's and
+    the student's two sites, and the student's two backward passes); step
+    1's JS_SCALARS each within max(2 x |bf16 - float32| at step 1, 1e-3 x
+    |r05|) of r05's step 1; the control misses that bound on at least one
+    of them. Printed: |port / r05 - 1| of info/loss at steps 1..JS_ITERS, the
+    ms per iteration of the loop (steps 2..JS_ITERS)."""
+    import dataclasses
+
+    from dycon_paper_replication_tpu_torch.config import config_from_args
+    from dycon_paper_replication_tpu_torch.data.synthetic import make_pancreas
+    from dycon_paper_replication_tpu_torch.ops import threefry
+    from dycon_paper_replication_tpu_torch.train.step import SCALAR_METRICS
+    from dycon_paper_replication_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(tmp, "Pancreas_canonical")  # phase trained_eval's, if it ran
+    if not os.path.isfile(os.path.join(root, "train.list")):
+        make_pancreas(root, **CANONICAL_TREE, suffix=".npz")
+    r05 = _r05_steps(JS_ITERS)
+    kernels = dict(noise=threefry.teacher_noise, dropout=threefry.dropout_kernel)
+
+    def run(seed, dtype, iters):
+        argv = ["--root_dir", root, "--snapshot_root", os.path.join(tmp, f"js_{seed}_{dtype}"),
+                "--max_iterations", "20000", "--save_every", "1000", "--compute_dtype", dtype,
+                "--fetch_ahead", "1", "--step_diagnostics", "cadence", "--seed", str(seed),
+                "--device", "cuda"]
+        trainer = Trainer(config_from_args("pancreas", argv))
+        # stop after `iters` with the 20000-iteration run's schedules, built above
+        trainer.cfg = dataclasses.replace(trainer.cfg, max_iterations=iters)
+        steps, counts, stamps = [], [], []
+
+        def counted(step):
+            def counted_step(*a, **k):
+                stamps.append(time.perf_counter())
+                for c in kernels.values():
+                    c.launches = 0
+                out = step(*a, **k)
+                counts.append({n: c.launches for n, c in kernels.items()})
+                steps.append(out[0])
+                return out
+            return counted_step
+
+        _wrap_steps(trainer, counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vals = [dict(zip(SCALAR_METRICS, v.tolist())) for v in steps]
+        # ms per iteration of the loop: dispatch to dispatch, past the first two
+        gaps = [(b - a) * 1e3 for a, b in zip(stamps[2:], stamps[3:])]
+        return vals, counts, wall, statistics.median(gaps) if gaps else None
+
+    t0 = time.perf_counter()
+    bf16, counts, wall, ms_iter = run(JS_SEED, "bfloat16", JS_ITERS)
+    f32, counts32, _, _ = run(JS_SEED, "float32", 1)
+    control = run(JS_CONTROL_SEED, "bfloat16", 1)[0]
+    want = dict(noise=1, dropout=6)
+    _check(len(bf16) == JS_ITERS and all(c == want for c in counts) and counts32 == [want],
+           f"jax_stream: {len(bf16)} steps, launches {counts[:3]} (float32 {counts32}), want "
+           f"{want} a step")
+    rows, miss_bound, control_miss = [], [], []
+    for name in JS_SCALARS:
+        tpu, port, port32, ctl = r05[1][name], bf16[0][name], f32[0][name], control[0][name]
+        bound = max(2 * abs(port - port32), 1e-3 * abs(tpu))
+        rows.append(dict(scalar=name, r05=tpu, port_bf16=port, port_f32=port32,
+                         control_1338=ctl, bound=bound, diff=port - tpu, control_diff=ctl - tpu))
+        if abs(port - tpu) > bound:
+            miss_bound.append(name)
+        if abs(ctl - tpu) > bound:
+            control_miss.append(name)
+    for row in rows:
+        print("jax_stream step1 " + json.dumps(row), flush=True)
+    rel = [abs(bf16[i]["loss"] / r05[i + 1]["loss"] - 1) for i in range(JS_ITERS)]
+    print("jax_stream info/loss |port / r05 - 1| at steps 1-%d: %s" % (
+        JS_ITERS, json.dumps(rel)), flush=True)
+    print(f"jax_stream: {JS_ITERS} iterations in {wall:.3f} s (trainer.run, start-up "
+          f"included), {ms_iter} ms per iteration of the loop (median, dispatch to dispatch, "
+          f"steps 3-{JS_ITERS}); launches a step {counts[0]}; "
+          f"{time.perf_counter() - t0:.3f} s in all", flush=True)
+    _check(not miss_bound, f"jax_stream: step 1 of seed {JS_SEED} misses r05 on {miss_bound}")
+    _check(bool(control_miss), f"jax_stream: the seed-{JS_CONTROL_SEED} control is within the "
+           "bound of r05 on every scalar: the gate says nothing")
+    return dict(launches={k: sum(c[k] for c in counts) for k in want},
+                launches_f32=counts32[0], rows=rows, rel_loss=rel, ms_per_iter=ms_iter)
+
+
 def main() -> int:
     import torch
 
@@ -3184,7 +3489,7 @@ def main() -> int:
     from dycon_paper_replication_tpu_torch.config import resolve_device
     from dycon_paper_replication_tpu_torch.models import UNet3D, UNet3DConfig
     from dycon_paper_replication_tpu_torch.ops import _build
-    from dycon_paper_replication_tpu_torch.ops import fecl_fused
+    from dycon_paper_replication_tpu_torch.ops import fecl_fused, threefry
     from dycon_paper_replication_tpu_torch.ops.folded_conv_cuda import DW_SOURCE, SOURCE
 
     t_all = time.perf_counter()
@@ -3203,7 +3508,7 @@ def main() -> int:
     _phase("card", t0)
 
     t0 = time.perf_counter()
-    logs = _build.build(SOURCE, DW_SOURCE, fecl_fused.SOURCE)
+    logs = _build.build(SOURCE, DW_SOURCE, fecl_fused.SOURCE, threefry.SOURCE)
     for src, log in logs.items():
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "wgmma", "setmaxnreg")):
@@ -3398,6 +3703,10 @@ def main() -> int:
         t0 = time.perf_counter()
         relay = phase_canonical_relay(torch, tmp)
         _phase("canonical_relay", t0)
+        t0 = time.perf_counter()
+        js_rows = phase_jax_stream_kernels(torch, device, peaks)
+        jax_stream = phase_jax_stream_trainer(torch, tmp)
+        _phase("jax_stream", t0)
 
     k1_src = "dycon_paper_replication_tpu_torch/ops/csrc/folded_conv3.cu"
     dx_replaces = "dycon_paper_replication_tpu/ops/folded_conv_pallas.py:215 (_conv_wf_bwd, dx)"
@@ -3482,6 +3791,26 @@ def main() -> int:
                             bound_by=row["tf32x3_bound_by"], bound_kind="tf32x3",
                             float32_bound_ms=row["bound_ms"], library_ms=None,
                             shapes=[row]))
+    noise = js_rows["noise"]
+    kernels.append(dict(name="threefry_noise", path="jax_stream", route="cuda", source=JS_SOURCE,
+                        replaces=JS_REPLACES["threefry_noise"],
+                        launches=jax_stream["launches"]["noise"],
+                        max_abs_err=noise["max_abs_err"], ms=noise["ms"],
+                        plain_ms=noise["plain_ms"], bound_ms=noise["bound_ms"],
+                        bound_by=noise["bound_by"], bound_kind="int32", library_ms=None,
+                        shapes=[noise]))
+    for dtype, launches in (("bfloat16", jax_stream["launches"]["dropout"]),
+                            ("float32", jax_stream["launches_f32"]["dropout"])):
+        rows = [r for n, r in js_rows.items() if n.startswith("dropout_") and
+                n.endswith(dtype)]
+        kernels.append(dict(
+            name=f"threefry_dropout_{dtype}", path="jax_stream", route="cuda",
+            source=JS_SOURCE, replaces=JS_REPLACES["threefry_dropout"], launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by="operations" if sum(r["ops_ms"] for r in rows) >= sum(
+                r["bytes_ms"] for r in rows) else "bytes",
+            bound_kind="int32", library_ms=None, shapes=rows))
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -68,10 +68,10 @@ class ASPP3D(nn.Module):
                                        compute_dtype=compute_dtype)
         self.fuse_bn = layers.BatchNorm(outplanes)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         """x (B, D1, D2, D3, inplanes) -> (B, D1, D2, D3, outplanes). The
         BatchNorms follow the module's mode; the dropout applies only in
-        training mode with a generator."""
+        training mode with a threefry key."""
         branches = []
         for i, dil in enumerate(self.dilations):
             branch = getattr(self, f"aspp{i + 1}")
@@ -87,4 +87,4 @@ class ASPP3D(nn.Module):
         branches.append(pooled)
         h = self.fuse_conv(torch.cat(branches, dim=-1))
         h = layers.relu(self.fuse_bn(h))
-        return layers.dropout(h, 0.5, generator, self.training)
+        return layers.dropout(h, 0.5, key, self.training)

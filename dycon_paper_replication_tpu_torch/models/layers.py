@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import threefry
 from ..ops.folded_conv_cuda import cast_operands, library_conv
 from ..parallel import mesh
 
@@ -193,18 +194,14 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            train: bool) -> torch.Tensor:
-    """Inverted dropout (scale by 1/keep); the identity unless training with
-    a generator, as the JAX layer is without a key. Inside a data-parallel
-    step the mask is drawn for the global batch and this rank's rows kept."""
-    if not train or rate == 0.0 or generator is None:
+def dropout(x: torch.Tensor, rate: float, key, train: bool) -> torch.Tensor:
+    """Inverted dropout, where(bernoulli(key, keep, x.shape), x / keep, 0):
+    the JAX layer's masks from the same threefry key (ops/threefry.py: the
+    kernel on the card, its backward redrawing the mask); the identity
+    unless training with a key, as the JAX layer is without one. Inside a
+    data-parallel step a rank draws its own rows of the global batch's
+    mask."""
+    if not train or rate == 0.0 or key is None:
         return x
-    keep = 1.0 - rate
     shard = mesh.active()
-    if shard is None:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    else:
-        mask = shard.rows_of(torch.rand((shard.global_batch,) + tuple(x.shape[1:]),
-                                        generator=generator, device=x.device)) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return threefry.dropout(x, key, 1.0 - rate, None if shard is None else shard.rows)

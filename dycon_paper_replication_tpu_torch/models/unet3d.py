@@ -32,6 +32,7 @@ from torch import nn
 
 from . import layers
 from .aspp import ASPP3D
+from ..ops import threefry
 from ..ops.resize import max_pool_2x, trilinear_resize, upsample2x
 
 
@@ -101,35 +102,34 @@ class UNet3D(nn.Module):
         if cfg.use_aspp:
             self.aspp = ASPP3D(f[4], f[4], compute_dtype=cd)
 
-    def forward(self, x: torch.Tensor, *, with_projection: bool = True,
-                generator: torch.Generator | None = None):
+    def forward(self, x: torch.Tensor, *, with_projection: bool = True, key=None):
         """x: (B, D1, D2, D3, in_channels), spatial dims divisible by 16.
         Returns (sdf, seg_logits, features), float32 channels-last;
         features is None with `with_projection=False`. Dropout applies only
-        in training mode with a generator: the centre's draw, the last
-        decoder map's, then ASPP's (with `use_aspp`)."""
+        in training mode with a threefry key (ops/threefry.py), split as the
+        JAX model splits its rng (unet3d.py:197): the centre's key, the last
+        decoder map's, ASPP's."""
         if self.cfg.layout == "folded":
             from .unet3d_folded import unet3d_apply_folded
 
-            return unet3d_apply_folded(self, x, with_projection=with_projection,
-                                       generator=generator)
+            return unet3d_apply_folded(self, x, with_projection=with_projection, key=key)
         train = self.training
+        d1_key, d2_key, aspp_key = dropout_keys(key, train)
         skips = []
         h = x
         for name in _ENCODER:
             h = getattr(self, name)(h)
             skips.append(h)
             h = max_pool_2x(h)
-        center = layers.dropout(self.center(h), self.cfg.dropout_rate, generator, train)
+        center = layers.dropout(self.center(h), self.cfg.dropout_rate, d1_key, train)
         h = center
         for name, skip in zip(_DECODER, skips[::-1]):
             up = upsample2x(h)
             h = getattr(self, name)(torch.cat([skip.to(up.dtype), up], dim=-1))
-        h = layers.dropout(h, self.cfg.dropout_rate, generator, train)
+        h = layers.dropout(h, self.cfg.dropout_rate, d2_key, train)
         sdf = torch.tanh(self.final(h).to(torch.float32))
         seg = self.out_conv2(h).to(torch.float32)
-        features = (projection_head(self, center, generator=generator) if with_projection
-                    else None)
+        features = projection_head(self, center, key=aspp_key) if with_projection else None
         return sdf, seg, features
 
     def apply_seg_folded(self, xf: torch.Tensor) -> torch.Tensor:
@@ -140,16 +140,23 @@ class UNet3D(nn.Module):
         return unet3d_seg_folded_io(self, xf)
 
 
-def projection_head(net, center: torch.Tensor,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
+def dropout_keys(key, train: bool, n: int = 3) -> tuple:
+    """The JAX model's split of its rng into its dropout keys (centre,
+    decoder, and ASPP for the UNet3D), or Nones outside training."""
+    if not train or key is None:
+        return (None,) * n
+    return tuple(threefry.split(key, n))
+
+
+def projection_head(net, center: torch.Tensor, key=None) -> torch.Tensor:
     """ASPP (where `net` has one) + corner-aligned upsample +
     conv-BN-ReLU-conv-BN of the bottleneck; the UNet3D's and the VNet's. In
     training mode the BatchNorms use the batch statistics and update their
     running stats (the JAX head's new BN state), and ASPP's dropout draws
-    from `generator`."""
+    from `key`."""
     aspp = getattr(net, "aspp", None)
     if aspp is not None:
-        center = aspp(center, generator=generator)
+        center = aspp(center, key=key)
     p = net.projection
     target = tuple(s * net.cfg.scale_factor for s in center.shape[1:4])
     proj = trilinear_resize(center, target, align_corners=True)

@@ -42,8 +42,7 @@ def _folded_block(block, x: torch.Tensor, *, grid, n_valid: int,
     return layers.relu(instance_norm_folded(h, n_valid))
 
 
-def unet3d_trunk_folded(net, xf: torch.Tensor, *,
-                        generator: torch.Generator | None = None):
+def unet3d_trunk_folded(net, xf: torch.Tensor, *, d1_key=None, d2_key=None):
     """Encoder + decoder on FOLDED input, FOLDED output.
 
     xf: (B, G1, G2, G3, 8*in_ch) phase-0 (grid dims % 8 == 0). Returns
@@ -68,7 +67,7 @@ def unet3d_trunk_folded(net, xf: torch.Tensor, *,
     # unfolded middle
     s3 = net.conv3(h)
     s4 = net.conv4(max_pool_2x(s3))
-    center = layers.dropout(net.center(max_pool_2x(s4)), rate, generator, train)
+    center = layers.dropout(net.center(max_pool_2x(s4)), rate, d1_key, train)
     h = center
     for block, skip in ((net.up_concat4, s4), (net.up_concat3, s3)):
         up = upsample2x(h)
@@ -81,7 +80,7 @@ def unet3d_trunk_folded(net, xf: torch.Tensor, *,
     up = upsample2x_folded(unfold2(h))
     h = _folded_block(net.up_concat1, torch.cat([s1.to(up.dtype), up], dim=-1), grid=g1,
                       n_valid=n1, cd=cd)
-    h = layers.dropout(h, rate, generator, train)
+    h = layers.dropout(h, rate, d2_key, train)  # on the folded map, as JAX's folded model
     return h, center
 
 
@@ -94,19 +93,18 @@ def unet3d_seg_folded_io(net, xf: torch.Tensor) -> torch.Tensor:
                           net.cfg.compute_dtype).to(torch.float32)
 
 
-def unet3d_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
-                        generator: torch.Generator | None = None):
+def unet3d_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True, key=None):
     """The folded forward with the plain path's interface: x (B, D, H, W,
     in_ch), D, H, W % 16 == 0 -> (sdf, seg, features or None)."""
-    from .unet3d import projection_head
+    from .unet3d import dropout_keys, projection_head
 
     _, D, H, W, _ = x.shape
     if D % 16 or H % 16 or W % 16:
         raise ValueError(f"spatial dims {(D, H, W)} must be divisible by 16")
     cd = net.cfg.compute_dtype
-    h, center = unet3d_trunk_folded(net, fold2(x), generator=generator)
+    d1_key, d2_key, aspp_key = dropout_keys(key, net.training)
+    h, center = unet3d_trunk_folded(net, fold2(x), d1_key=d1_key, d2_key=d2_key)
     sdf = torch.tanh(unfold2(conv1x1_folded(h, net.final.w, net.final.b, cd)).to(torch.float32))
     seg = unfold2(conv1x1_folded(h, net.out_conv2.w, net.out_conv2.b, cd)).to(torch.float32)
-    features = (projection_head(net, center, generator=generator) if with_projection
-                else None)
+    features = projection_head(net, center, key=aspp_key) if with_projection else None
     return sdf, seg, features

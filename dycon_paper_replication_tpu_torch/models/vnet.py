@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from . import layers
-from .unet3d import ProjectionHead, projection_head
+from .unet3d import ProjectionHead, dropout_keys, projection_head
 
 # conv stages per encoder / decoder block
 ENC_STAGES = (1, 2, 3, 3, 3)
@@ -115,19 +115,19 @@ class VNet(nn.Module):
         self.out_conv_sdf = layers.Conv3d(f[0], cfg.n_classes, (1, 1, 1), compute_dtype=cd)
         self.projection = ProjectionHead(f[4], cfg.proj_hidden, cfg.proj_out, cd)
 
-    def forward(self, x: torch.Tensor, *, with_projection: bool = True,
-                generator: torch.Generator | None = None):
+    def forward(self, x: torch.Tensor, *, with_projection: bool = True, key=None):
         """x: (B, D1, D2, D3, in_channels), spatial dims divisible by 16.
         Returns (sdf, seg_logits, features), float32 channels-last;
         features is None with `with_projection=False`. Dropout applies only
-        in training mode with a generator: the centre's draw, then the
-        last decoder map's."""
+        in training mode with a threefry key, split in two as the JAX
+        model splits its rng (vnet.py:209): the centre's key, the last
+        decoder map's."""
         if self.cfg.layout == "folded":
             from .vnet_folded import vnet_apply_folded
 
-            return vnet_apply_folded(self, x, with_projection=with_projection,
-                                     generator=generator)
+            return vnet_apply_folded(self, x, with_projection=with_projection, key=key)
         train, rate = self.training, self.cfg.dropout_rate
+        d1_key, d2_key = dropout_keys(key, train, 2)
         skips = []
         h = x
         for lvl in range(5):
@@ -135,13 +135,13 @@ class VNet(nn.Module):
             if lvl < 4:
                 skips.append(h)
                 h = getattr(self, f"down{lvl}")(h)
-        center = layers.dropout(h, rate, generator, train)
+        center = layers.dropout(h, rate, d1_key, train)
         h = center
         for lvl in range(4):
             h = getattr(self, f"up{lvl}")(h)
             h = h + skips[3 - lvl].to(h.dtype)
             h = getattr(self, f"dec{lvl}")(h)
-        h = layers.dropout(h, rate, generator, train)
+        h = layers.dropout(h, rate, d2_key, train)
         seg = self.out_conv(h).to(torch.float32)
         sdf = torch.tanh(self.out_conv_sdf(h).to(torch.float32))
         features = projection_head(self, center) if with_projection else None

@@ -68,16 +68,16 @@ def _folded_stack(block, x: torch.Tensor, *, grid: tuple[int, int, int], n_valid
     return x
 
 
-def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
-                      generator: torch.Generator | None = None):
+def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True, key=None):
     """The folded forward with the plain path's interface: x (B, D, H, W,
     in_ch), D, H, W % 16 == 0 -> (sdf, seg, features or None)."""
-    from .unet3d import projection_head
+    from .unet3d import dropout_keys, projection_head
 
     _, D, H, W, _ = x.shape
     if D % 16 or H % 16 or W % 16:
         raise ValueError(f"spatial dims {(D, H, W)} must be divisible by 16")
     train, rate, cd = net.training, net.cfg.dropout_rate, net.cfg.compute_dtype
+    d1_key, d2_key = dropout_keys(key, train, 2)
     g0 = (D // 2, H // 2, W // 2)  # L0 folded grid (phase 0)
     g1 = tuple(g // 2 for g in g0)  # L1 folded grid
     n0 = D * H * W
@@ -99,7 +99,7 @@ def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
         if lvl < 4:
             skips.append(h)
             h = getattr(net, f"down{lvl}")(h)
-    center = layers.dropout(h, rate, generator, train)
+    center = layers.dropout(h, rate, d1_key, train)
     h = center
     for lvl in (0, 1):
         h = getattr(net, f"up{lvl}")(h)
@@ -113,7 +113,7 @@ def vnet_apply_folded(net, x: torch.Tensor, *, with_projection: bool = True,
     h = layers.relu(_bn_folded(net.up3.bn, h, n0))
     # ends at phase 1, grid g0 + 1
     h = _folded_stack(net.dec3, h + s0.to(h.dtype), grid=g0, n_valid=n0, cd=cd)
-    h = layers.dropout(h, rate, generator, train)
+    h = layers.dropout(h, rate, d2_key, train)
 
     def head(conv):
         return unfold2_phase1(conv1x1_folded(h, conv.w, conv.b, cd)).to(torch.float32)

@@ -27,8 +27,9 @@ keeps that contract with explicit collectives:
   * `sharded(shard)` makes a Shard visible to the layers that need the
     global batch (models/layers.py: train-mode BatchNorm statistics and
     dropout masks; ops/folding.py:batch_norm_folded; models/aspp.py): the
-    statistics are cross-rank sums, the masks are drawn for the global batch
-    and sliced per rank, as the teacher noise is in the step;
+    statistics are cross-rank sums, and a rank draws its own rows of the
+    global batch's dropout masks from the step's threefry key, as it does
+    the teacher noise (ops/threefry.py's `rows`, the Shard's `rows`);
   * `distributed_init` / `launch`: `train_* --data_parallel N` spawns N
     workers (torch.multiprocessing, a file store under the temporary
     directory), NCCL on CUDA and gloo on the CPU; a process started by

@@ -11,7 +11,8 @@ beyond the tolerances below, one line per leaf (empty when all agree).
 The cases. Each is a full-width model, folded, dropout 0; patch
 (32, 32, 16), batch 4 of which 2 labeled; the teacher noise drawn with
 numpy and handed to both steps. The state has the student from `seed`, a
-teacher from seed + 1 and step 1, so the EMA mixes two different nets with
+teacher from seed + 1 (weights.init_scheme_tree, the weights its
+tolerances were measured on) and step 1, so the EMA mixes two different nets with
 alpha 0.5; the momentum starts at zero.
   * "pancreas": tests/test_torch_train_step.py's case, a UNet3D
     (feature_scale 4, filters 16..256) under the Pancreas step config
@@ -109,7 +110,7 @@ import torch
 from .. import weights
 from ..config import TrainConfig, make_config
 from ..models import UNet3DConfig, VNetConfig, build_model, layers
-from ..ops import dycon, fecl_fused, resize
+from ..ops import dycon, fecl_fused, resize, threefry
 from . import step as train_step
 from .state import TrainState, create_train_state
 from .step import SCALAR_METRICS, StepScalars, build_train_step
@@ -159,7 +160,7 @@ def initial_state(seed: int, config: str = "pancreas",
     nets = []
     for s in (seed, seed + 1):
         net = build_model(cfg)
-        net.load_state_dict(weights.jax_tree_to_state_dict(*weights.init_jax_tree(cfg, s)))
+        net.load_state_dict(weights.jax_tree_to_state_dict(*weights.init_scheme_tree(cfg, s)))
         nets.append(net)
     state = create_train_state(nets[0])
     state.teacher.load_state_dict(nets[1].state_dict())
@@ -170,12 +171,12 @@ def initial_state(seed: int, config: str = "pancreas",
 @contextlib.contextmanager
 def shared_dropout(seed: int):
     """models/layers.dropout drawing its keep masks with numpy from `seed`,
-    in call order, where the layer would draw from its generator: the same
-    masks on any device."""
+    in call order, where the layer would draw from its key: the same masks
+    on any device, through the plain arithmetic on both."""
     rng = np.random.default_rng(seed)
 
-    def dropout(x, rate, generator, train):
-        if not train or rate == 0.0 or generator is None:
+    def dropout(x, rate, key, train):
+        if not train or rate == 0.0 or key is None:
             return x
         keep = torch.from_numpy(rng.random(tuple(x.shape)) < 1.0 - rate).to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
@@ -218,7 +219,7 @@ def run_step(state: TrainState, batch: dict[str, np.ndarray], noise: np.ndarray,
     cfg = step_config(device, config)
     step = build_train_step(cfg, lambda _: cfg.base_lr)
     out, _ = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
-                  torch.Generator(device=device).manual_seed(0),
+                  threefry.key(0),
                   SCALARS_ISLES if config == "isles22" else SCALARS,
                   noise=torch.from_numpy(noise).to(device))
     return out.cpu().numpy()

@@ -13,10 +13,13 @@ The batch layout is the two-stream sampler's: labeled samples first
 (B, D1, D2, D3) integer (uint8 or int32), on the model's device: the
 loader's wire dtypes (data/pipeline.py), widened here to float32 / int64.
 
-One `torch.Generator` on that device draws the step's randomness: the
-teacher noise clip(0.1 N(0, 1), +-0.2), then the teacher's dropout, then the
-student's. The noise can also be passed in, so a test can hand both
-packages the same numbers. FeCL is dense at `fecl_chunk` 0; above it, over
+The step's randomness is the JAX step's, from the same threefry key
+(ops/threefry.py): the key splits into the noise, student and teacher keys,
+as at the JAX step.py:191; the teacher noise clip(0.1 N(0, 1), +-0.2) is
+jax.random.normal's draw from the noise key, and the models split their keys
+into the dropout keys as the JAX models do. On the card the noise and the
+dropout masks come from the threefry kernel (ops/csrc/threefry.cu). The
+noise can also be passed in (the global batch's). FeCL is dense at `fecl_chunk` 0; above it, over
 row tiles of `fecl_chunk` through `fecl_impl` "fused" (ops/fecl_fused.py:
 the closed-form backward, the kernel K2 on the card) or "chunked"
 (ops/dycon.py:fecl_loss_chunked).
@@ -45,9 +48,8 @@ the JAX trainer's.
 `cfg.remat` "full" recomputes the student forward in the backward pass
 (torch.utils.checkpoint, non-reentrant), as JAX's jax.checkpoint of the
 student forward; the teacher's no-grad forward is not affected. The
-recompute replays the dropout generator's state from the start of the
-forward and puts it back afterwards (checkpoint's preserve_rng_state saves
-only the default generators), and runs under
+recompute draws the same dropout masks from the same student key (the
+draws are counter-based; no generator state to replay), and runs under
 models/layers.frozen_running_stats, so the BatchNorms' running statistics
 move once. It is refused in a data-parallel step, whose BatchNorm sums
 would run their cross-rank all-reduces again inside the backward.
@@ -59,8 +61,8 @@ the global batch is the rank's sum over the global count (CE, UnCL, the
 consistency term, FeCL's student mean), the Dice ratio and the BatchNorm
 statistics take their sums across ranks through a differentiable all-reduce
 (whose backward all-reduces the cotangent), FeCL's cross term divides by
-the global count of hard pairs, and the teacher noise and dropout masks are
-drawn for the global batch and sliced per rank. The scalars are all-reduced
+the global count of hard pairs, and a rank draws its own rows of the global
+batch's teacher noise and dropout masks (threefry's `rows`). The scalars are all-reduced
 (one collective), so every rank sees the global loss and skips a NaN/Inf
 step together; the gradients are all-reduced by SUM (the gradient of the
 summed terms, not a mean of per-rank gradients), and global-norm clipping
@@ -78,7 +80,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import TrainConfig
 from ..models import layers
-from ..ops import dycon, fecl_fused, losses
+from ..ops import dycon, fecl_fused, losses, threefry
 from ..parallel import mesh
 from ..ops.resize import avg_pool_nonoverlap
 from .state import TrainState, ema_candidate, select_, sgd_candidate
@@ -127,38 +129,24 @@ def ema_alpha(step: torch.Tensor | int, decay: float) -> torch.Tensor:
     return torch.clamp_max(1.0 - 1.0 / (s + 1.0), decay)
 
 
-@contextlib.contextmanager
-def _replayed(generator: torch.Generator | None, start: torch.Tensor | None):
-    """The recompute of a checkpointed student forward: `generator` back at
-    the forward's `start` state (the same dropout masks), and where it was
-    afterwards; the BatchNorms' running stats frozen."""
-    after = None
-    if generator is not None:
-        after = generator.get_state()
-        generator.set_state(start)
-    try:
-        with layers.frozen_running_stats():
-            yield
-    finally:
-        if generator is not None:
-            generator.set_state(after)
-
-
-def remat_forward(student: torch.nn.Module, image: torch.Tensor,
-                  generator: torch.Generator | None):
-    """student(image, generator=generator) with its activations recomputed
-    in the backward pass instead of stored (module doc)."""
-    start = None if generator is None else generator.get_state()
-    return checkpoint(lambda x: student(x, generator=generator), image, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), _replayed(generator, start)))
+def remat_forward(student: torch.nn.Module, image: torch.Tensor, key):
+    """student(image, key=key) with its activations recomputed in the
+    backward pass instead of stored, the running stats frozen in the
+    recompute (module doc). No default generator is drawn from, so none is
+    saved."""
+    return checkpoint(lambda x: student(x, key=key), image, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          layers.frozen_running_stats()))
 
 
 def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[torch.Tensor], float | torch.Tensor],
                      shard: mesh.Shard | None = None, *, diagnostics: bool = True) -> Callable:
-    """train_step(state, batch, generator, scalars, noise=None) -> (the
+    """train_step(state, batch, key, scalars, noise=None) -> (the
     float32 vector of SCALAR_METRICS on the device, {"pred_fg",
     "embedding", "mask_con"}, or {} with `diagnostics` False); `state` is
-    updated in place. `lr_schedule` maps the device step count to the
+    updated in place; `key` is a threefry key (ops/threefry.py), the JAX
+    step's rng. `lr_schedule` maps the device step count to the
     learning rate (a float, or a device scalar). With `shard`, `batch`
     holds this rank's rows and `noise` (if given) is the global batch's
     (module doc); the returned scalars are the global step's."""
@@ -181,11 +169,11 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[torch.Tensor], flo
         w_dice = 1.0 / shard.world
         reduce = shard.all_sum
 
-    def loss_fn(student, image, label, t_logits, t_features, generator, scalars: StepScalars):
+    def loss_fn(student, image, label, t_logits, t_features, key, scalars: StepScalars):
         if cfg.remat == "full":
-            _, s_logits, s_features = remat_forward(student, image, generator)
+            _, s_logits, s_features = remat_forward(student, image, key)
         else:
-            _, s_logits, s_features = student(image, generator=generator)
+            _, s_logits, s_features = student(image, key=key)
         s_probs = torch.softmax(s_logits, dim=-1)
         t_probs = torch.softmax(t_logits, dim=-1)
 
@@ -232,15 +220,16 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[torch.Tensor], flo
                  + cfg.u_weight * (f_loss + u_loss))
         return total, (loss_ce, loss_dice, f_loss, u_loss, cons), (s_probs, stud_emb, mask)
 
-    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
-                   scalars: StepScalars, noise: torch.Tensor | None = None):
+    def train_step(state: TrainState, batch: dict, key, scalars: StepScalars,
+                   noise: torch.Tensor | None = None):
         image = batch["image"].to(torch.float32)
         label = batch["label"].long()
+        noise_key, student_key, teacher_key = threefry.split(key, 3)
         if noise is None:
             shape = image.shape if shard is None else (shard.global_batch,) + image.shape[1:]
-            noise = torch.randn(shape, generator=generator, device=image.device)
-            noise = (0.1 * noise).clamp(-0.2, 0.2)
-        if shard is not None:
+            noise = threefry.teacher_noise(noise_key, shape, None if shard is None else shard.rows,
+                                           image.device)
+        elif shard is not None:
             noise = shard.rows_of(noise)
         teacher = state.teacher.train(cfg.teacher_train_mode)
         student = state.student.train()
@@ -249,9 +238,9 @@ def build_train_step(cfg: TrainConfig, lr_schedule: Callable[[torch.Tensor], flo
         with mesh.sharded(shard):
             with torch.no_grad():
                 _, t_logits, t_features = teacher(
-                    image + noise, generator=generator if cfg.teacher_train_mode else None)
+                    image + noise, key=teacher_key if cfg.teacher_train_mode else None)
             total, parts, (s_probs, stud_emb, mask) = loss_fn(student, image, label, t_logits,
-                                                              t_features, generator, scalars)
+                                                              t_features, student_key, scalars)
         total.backward()
 
         with torch.no_grad():

@@ -51,6 +51,10 @@ Counterpart of dycon_paper_replication_tpu/train/trainer.py on one device:
     host-RSS watchdog (every 20 iterations, `host_rss_exit_gb`);
   * a copy of the port's package in <snapshot>/code (without the kernel
     build directory);
+  * the JAX trainer's random streams (ops/threefry.py): the initial weights
+    from key(seed) (weights.init_jax_tree), the steps' keys from
+    key(seed + 1), folded with the step count on a resume and split once
+    per dispatched step, so that one `seed` is one run in both packages;
   * `deterministic=1` (the default): the configured seed, cudnn.benchmark
     off, cudnn.deterministic on and torch.use_deterministic_algorithms(True)
     in its error mode, and on CUDA a deterministic CUBLAS_WORKSPACE_CONFIG
@@ -116,7 +120,7 @@ from ..eval import (
     var_all_case_wholevolume,
 )
 from ..models import build_model, model_config
-from ..ops import metrics, ramps
+from ..ops import metrics, ramps, threefry
 from ..utils import checkpoint
 from ..utils.logging import ExperimentLogger
 from ..utils.monitor import monitor_similarity_distributions
@@ -506,8 +510,11 @@ class Trainer:
         cfg = self.cfg
         t_start = time.monotonic()
         iter_num = int(self.state.step)  # nonzero after a resume
-        generator = torch.Generator(device=self.device).manual_seed(
-            (cfg.seed + 1) * 1_000_003 + iter_num)
+        # the JAX trainer's stream: key(seed + 1), folded with the step on a
+        # resume, split once per dispatched step (NaN-skipped ones too)
+        key = threefry.key(cfg.seed + 1)
+        if iter_num:
+            key = threefry.fold_in(key, iter_num)
         start_epoch = iter_num // self.iters_per_epoch
         last_epoch = None
         self._hd95_pending = collections.deque()
@@ -531,7 +538,8 @@ class Trainer:
                 t0 = self.timer.start()
                 tensors = {k: torch.from_numpy(x) if isinstance(x, np.ndarray) else x
                            for k, x in batch.items()}
-                vec, diag = step(self.state, tensors, generator, scalars)
+                key, step_key = threefry.split(key)
+                vec, diag = step(self.state, tensors, step_key, scalars)
                 current = (self._fetch(vec), diag, tensors["label"], scalars, t0)
                 if pending is not None:
                     iter_num = self._finish(*pending, iter_num, pool)

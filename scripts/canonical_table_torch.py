@@ -3,7 +3,7 @@
 beside the TPU's committed record of the same run, and hold it to the gates.
 
     python3 scripts/canonical_table_torch.py --dataset pancreas \
-        [--work runs/canonical/pancreas] [--reach N] [--out table.json]
+        [--work runs/canonical/pancreas] [--reach N] [--compare WORK2] [--out table.json]
 
 Reads the run's metrics.jsonl (under `--work`/runs), the relay log
 (`--work`/relay.jsonl), the leg logs (`--work`/logs) and the test leg's
@@ -17,6 +17,16 @@ scores, and prints, beside the TPU's `bench_results/r05_canonical20k_*`
   * info/loss window means (the 201 iterations centred on the milestone,
     ending at the last iteration where they would run past it; a step
     logged twice counts its last row) at 1000, 5000, 10000 and 20000;
+  * the step scalars against the TPU's at the same steps (info/loss,
+    loss_ce, loss_dice, f_loss, u_loss, consistency_loss): |port / TPU - 1|
+    in windows of steps (1, 2-10, 11-100, 101-1000, 1001-2000; a step
+    logged twice counts its last row), the median and max of each; since
+    the port draws the TPU run's initial weights, noise and dropout masks
+    from the same seed (ops/threefry.py), these start at bf16's rounding
+    and show how fast the two trajectories part;
+  * with `--compare` (a second run's work directory or metrics.jsonl, e.g.
+    a float32 or another seed's leg): its iterations, best val Dice,
+    milestones, loss windows and step windows beside the first run's;
   * the NaN/Inf-skipped steps (the leg logs' lines), ms per iteration of
     the loop (the median gap between consecutive info/loss rows of a leg)
     and wall ms per iteration, and the device memory in use per leg
@@ -68,6 +78,8 @@ RECORD = {
 BEST_TOL, MILESTONE_TOL, JACCARD_TOL = 0.001, 0.002, 0.002
 RSS_GROWTH, LEAK_MIN_ITERS, DEVICE_MEM_TOL = 1.5, 5000, 0.02
 WINDOW = 201
+STEP_SCALARS = ("loss", "loss_ce", "loss_dice", "f_loss", "u_loss", "consistency_loss")
+STEP_WINDOWS = ((1, 1), (2, 10), (11, 100), (101, 1000), (1001, 2000))
 SKIPPED = re.compile(r"NaN or Inf found in loss at iteration")
 CASE = re.compile(r"^(\d+)\s+\|\s+([0-9.]+)\s+\|\s+([0-9.]+)\s+\|\s+([0-9.]+)\s+\|\s+([0-9.]+)",
                   re.M)
@@ -114,6 +126,32 @@ def loss_windows(rows: list[dict], centres) -> dict:
         if c <= last and vals:
             out[c] = sum(vals) / len(vals)
     return out
+
+
+def step_differences(rows: list[dict], ref_rows: list[dict], windows=STEP_WINDOWS) -> dict:
+    """|run / ref - 1| of each of STEP_SCALARS at the steps both logged, by
+    window of steps (a step logged twice counts its last row): {scalar:
+    {"lo-hi": {"n", "median", "max"}}}."""
+    run, ref = by_tag(rows), by_tag(ref_rows)
+    out: dict = {}
+    for name in STEP_SCALARS:
+        a, b = dict(run.get(f"info/{name}", [])), dict(ref.get(f"info/{name}", []))
+        for lo, hi in windows:
+            rel = [abs(a[s] / b[s] - 1) for s in range(lo, hi + 1) if s in a and s in b and b[s]]
+            if rel:
+                out.setdefault(name, {})[f"{lo}-{hi}"] = dict(
+                    n=len(rel), median=statistics.median(rel), max=max(rel))
+    return out
+
+
+def metrics_path(path: str) -> str:
+    """A metrics.jsonl given, or the one under a work directory's runs/."""
+    if path.endswith(".jsonl"):
+        return path
+    found = next(iter(glob.glob(os.path.join(path, "runs", "*", "*", "metrics.jsonl"))), None)
+    if found is None:
+        raise SystemExit(f"no metrics.jsonl under {path}/runs")
+    return found
 
 
 def parse_test_log(text: str) -> dict:
@@ -194,16 +232,21 @@ def gates(dataset: str, run: dict, tpu: dict, legs: list[dict], test: dict | Non
 def table(args) -> dict:
     spec = RECORD[args.dataset]
     work = args.work or os.path.join(ROOT, "runs", "canonical", args.dataset)
-    metrics = next(iter(glob.glob(os.path.join(work, "runs", "*", "*", "metrics.jsonl"))), None)
-    if metrics is None:
-        raise SystemExit(f"no metrics.jsonl under {work}/runs")
+    metrics = metrics_path(work)
     rows = load_rows(metrics)
     tpu_rows = load_rows(os.path.join(ROOT, spec["metrics"]))
     run, tpu = (summarize(r, spec["milestones"]) for r in (rows, tpu_rows))
     run["final_best"] = ([v for _, v in by_tag(rows).get("info/Best_dice", [])] or [None])[-1]
     out = dict(dataset=args.dataset, metrics=metrics, port=run, tpu=tpu,
                loss_windows=dict(port=loss_windows(rows, spec["loss_windows"]),
-                                 tpu=loss_windows(tpu_rows, spec["loss_windows"])))
+                                 tpu=loss_windows(tpu_rows, spec["loss_windows"])),
+               steps=step_differences(rows, tpu_rows))
+    if args.compare:
+        second = load_rows(metrics_path(args.compare))
+        out["second"] = dict(metrics=metrics_path(args.compare),
+                             port=summarize(second, spec["milestones"]),
+                             loss_windows=loss_windows(second, spec["loss_windows"]),
+                             steps=step_differences(second, tpu_rows))
     relay_path = os.path.join(work, "relay.jsonl")
     relay = load_rows(relay_path) if os.path.exists(relay_path) else []
     legs = leg_rows(relay, rows, work)
@@ -229,17 +272,30 @@ def _fmt(v) -> str:
 
 def show(out: dict) -> None:
     run, tpu = out["port"], out["tpu"]
-    print(f"{'':32} {'port':>22} {'TPU (r05)':>22}")
-    print(f"{'max training iteration reached':32} {run['max_step']:>22} {tpu['max_step']:>22}")
-    print(f"{'validations':32} {run['validations']:>22} {tpu['validations']:>22}")
-    print(f"{'best val Dice':32} {run['best']:>22.5f} {tpu['best']:>22.5f}")
+    second = out.get("second")
+    two = second["port"] if second else None
+    extra = (lambda v: f" {v:>22}") if second else (lambda v: "")
+    print(f"{'':32} {'port':>22} {'TPU (r05)':>22}" + extra("second run"))
+    print(f"{'max training iteration reached':32} {run['max_step']:>22} {tpu['max_step']:>22}"
+          + extra(two and two["max_step"]))
+    print(f"{'validations':32} {run['validations']:>22} {tpu['validations']:>22}"
+          + extra(two and two["validations"]))
+    print(f"{'best val Dice':32} {run['best']:>22.5f} {tpu['best']:>22.5f}"
+          + extra(two and f"{two['best']:.5f}"))
     for m in sorted(set(run["milestones"]) | set(tpu["milestones"])):
         print(f"{f'val Dice at {m}':32} {_fmt(run['milestones'].get(m)):>22} "
-              f"{_fmt(tpu['milestones'].get(m)):>22}")
+              f"{_fmt(tpu['milestones'].get(m)):>22}"
+              + extra(two and _fmt(two["milestones"].get(m))))
     windows = out["loss_windows"]
     for c in sorted(set(windows["tpu"]) | set(windows["port"])):
         print(f"{f'info/loss {WINDOW}-window at {c}':32} {_fmt(windows['port'].get(c)):>22} "
-              f"{_fmt(windows['tpu'].get(c)):>22}")
+              f"{_fmt(windows['tpu'].get(c)):>22}"
+              + extra(second and _fmt(second["loss_windows"].get(c))))
+    for label, steps in (("port", out["steps"]), ("second run", second and second["steps"])):
+        for name, by_window in (steps or {}).items():
+            cells = ", ".join(f"{w}: {d['median']:.2e} / {d['max']:.2e}"
+                              for w, d in by_window.items())
+            print(f"|{label} / TPU - 1| {name} (median / max by steps): {cells}")
     for name, r in (("port", run), ("TPU", tpu)):
         if r["rss"]:
             print(f"host RSS GB min/median/max {name}: {r['rss'][0]:.3f} / {r['rss'][1]:.3f} / "
@@ -265,6 +321,8 @@ def main(argv=None) -> dict:
     p.add_argument("--work", type=str, default=None)
     p.add_argument("--reach", type=int, default=None,
                    help="the iteration gate (a) asks for (20000 Pancreas, 3400 BraTS)")
+    p.add_argument("--compare", type=str, default=None,
+                   help="a second run's work directory or metrics.jsonl, shown beside the first")
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args(argv)
     out = table(args)

@@ -27,8 +27,10 @@ again with the test Dice, Jaccard, HD95 and ASD, then `FINAL {...}`.
 A long run can go in legs, each a fresh process: `--train_only` (repeat
 with `--resume auto` while final_iter < iters), then `--test_only`.
 Everything computes in float32. `--seed` changes the trainer's randomness
-(initial weights, sampling, noise, dropout); the dataset is fixed by its
-own seed, 7.
+(initial weights, sampling, noise, dropout), drawn as the JAX trainer draws
+it from the same seed (ops/threefry.py), so an arm here and the JAX
+script's arm at one seed start from the same weights and draw the same
+noise and masks; the dataset is fixed by its own seed, 7.
 """
 
 from __future__ import annotations
@@ -70,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="clean, resumable stop of each training arm after this many seconds "
                         "(0: none)")
     p.add_argument("--seed", type=int, default=None,
-                   help="the trainer's seed (initial weights and sampling); the dataset "
-                        "stays fixed")
+                   help="the trainer's seed (initial weights, sampling, noise and dropout, "
+                        "as the JAX trainer's); the dataset stays fixed")
     p.add_argument("--test_only", action="store_true",
                    help="skip training; test each arm's best checkpoint under --work")
     p.add_argument("--train_only", action="store_true",

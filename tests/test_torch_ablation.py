@@ -7,8 +7,8 @@ Tolerances, stated before the first run:
     every image and label bit-equal, with the same dtype, and the list
     files naming the same cases;
   * the sup arm's step (u_weight 0, consistency 0): one JAX step and one
-    port step from the same weights (weights.py) on the same batch, noise
-    and kink sides as tests/test_torch_train_step.py (a full-width folded
+    port step from the same weights (weights.py) on the same batch, key (so
+    noise) and kink sides as tests/test_torch_train_step.py (a full-width folded
     UNet3D, patch (32, 32, 16), batch 4 of which 2 labeled, dropout 0):
     the 8 scalars within rtol 1e-5 + atol 1e-6, the state within that
     test's path-scaled tolerances; on both sides the total loss equals
@@ -21,11 +21,17 @@ Tolerances, stated before the first run:
     (the port's config is the driver's `arm_config`; every field the two
     configs share is equal), runs on a hard tree of 6 + 1 cases of (40, 40,
     24) at patch (32, 32, 16), batch 4 of which 2 labeled, labelnum 3, from
-    the JAX trainer's initial weights carried into the port. The two
-    runs share the teacher noise (the JAX step's key), the dropout masks
-    (drawn at the JAX step's trace, tests/test_torch_vnet_train.py's
-    _SharedMasks, so the same 4 masks every step) and, per step, the JAX
-    step's kink sides (ReLUs, max pools, the train Dice's foreground).
+    the JAX trainer's initial weights carried into the port. Each step's key
+    is the JAX trainer's (equal, checked), from which the port draws the
+    JAX step's teacher noise (ops/threefry.py). The dropout masks are still
+    drawn at the JAX step's trace and handed across
+    (tests/test_torch_vnet_train.py's _SharedMasks, so the same 4 masks
+    every step): with the masks each side draws from the key (equal, bit for
+    bit), the sup arm's loss_ce drifted from 9e-7 relative at step 1 to
+    1.5e-5 at step 5 and 2.0e-5 at step 6 (x2-4 a step, float32 summation
+    order amplified along that trajectory), over the bound below. Shared,
+    per step: the JAX step's kink sides (ReLUs, max pools, the train
+    Dice's foreground).
     Equal: the sampler's batch indices, every batch's arrays, the step
     count and the saved iter_6; the host schedules (beta, consistency
     weight, FeCL thresholds) equal in float32 at every step; the learning
@@ -52,6 +58,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import types
 
 import jax
@@ -83,7 +90,7 @@ from dycon_paper_replication_tpu_torch.train.step import (
     build_train_step,
 )
 from dycon_paper_replication_tpu_torch.utils import checkpoint
-from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _flat, _noise, _np
+from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _flat, _np, _words
 from test_torch_vnet_train import _JaxKinkSides, _SharedMasks
 
 torch.set_num_threads(1)
@@ -178,8 +185,7 @@ def sup_step():
         sides = KinkSides.given(recorded.relu, recorded.pool, [], [torch.from_numpy(fg)])
         with sides.share():
             got, _ = port_step(port, {k: torch.from_numpy(v) for k, v in batch.items()},
-                               torch.Generator().manual_seed(0), StepScalars(*step_scalars),
-                               noise=torch.tensor(_noise(key, batch["image"].shape)))
+                               _words(key), StepScalars(*step_scalars))
         return port, got.numpy()
 
     port, got = run(scalars)
@@ -305,17 +311,16 @@ def trajectory(request, tmp_path_factory):
         port.validate = lambda: 0.0
         real_port_step = port.train_step
 
-        def port_step(state, batch, generator, scalars, noise=None):
+        def port_step(state, batch, key, scalars):
             rec = out["jax_steps"][len(out["port_steps"])]
             sides = KinkSides.given(recorded.relu[slice(*rec["relu"])],
                                     recorded.pool[slice(*rec["pool"])], [],
                                     [torch.from_numpy(rec["fg"])])
             with sides.share():
-                vec, diag = real_port_step(state, batch, generator, scalars,
-                                           noise=torch.tensor(_noise(rec["key"],
-                                                                     batch["image"].shape)))
+                vec, diag = real_port_step(state, batch, key, scalars)
             out["port_steps"].append(dict(
-                batch={k: v.numpy().copy() for k, v in batch.items()}, scalars=list(scalars),
+                key=np.asarray(key), batch={k: v.numpy().copy() for k, v in batch.items()},
+                scalars=list(scalars),
                 vec=vec.numpy().copy(),
                 lr_leaf=state.student.state_dict()[LR_LEAF].numpy().copy(),
                 momentum=state.momentum[LR_LEAF].numpy().copy()))
@@ -324,7 +329,8 @@ def trajectory(request, tmp_path_factory):
         port.train_step = port.train_step_light = port_step
         port.run()
     out.update(port=port, js0=js0, port_snapshot=port.snapshot_path)
-    return out
+    yield out
+    shutil.rmtree(tmp, ignore_errors=True)  # both runs' train states, read by the tests
 
 
 def test_trajectory_configs_match(trajectory):
@@ -344,6 +350,7 @@ def test_trajectory_batches_match(trajectory):
     assert trajectory["n_masks"] == 4  # one JAX trace: teacher and student, 2 each
     assert len(trajectory["port_steps"]) == len(trajectory["jax_steps"]) == TRAJ_STEPS
     for i, (p, j) in enumerate(zip(trajectory["port_steps"], trajectory["jax_steps"])):
+        np.testing.assert_array_equal(p["key"], _words(j["key"]), err_msg=f"step {i} key")
         assert p["batch"].keys() == j["batch"].keys()
         for k in j["batch"]:
             np.testing.assert_array_equal(p["batch"][k], j["batch"][k], err_msg=f"step {i} {k}")
@@ -424,6 +431,7 @@ def test_driver_end_to_end(tmp_path, capsys):
     assert "FINAL " + json.dumps(results) in out
     _check_tested(abl, argv, {rec.pop("arm"): rec for rec in lines[2:]})
     assert os.path.isfile(os.path.join(tmp_path, "data", "Pancreas_data", "PANCREAS_0000.npz"))
+    shutil.rmtree(tmp_path / "work", ignore_errors=True)  # the arms' train states, read
 
 
 def test_driver_in_legs(tmp_path, capsys):
@@ -438,3 +446,4 @@ def test_driver_in_legs(tmp_path, capsys):
     out = capsys.readouterr().out
     assert len(_json_lines(out)) == 6
     _check_tested(abl, argv, {arm: dict(second[arm], **third[arm]) for arm in third})
+    shutil.rmtree(tmp_path / "work", ignore_errors=True)  # the arms' train states, read

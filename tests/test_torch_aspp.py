@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from dycon_paper_replication_tpu.models import layers as jlayers
 from dycon_paper_replication_tpu.models.aspp import aspp3d_apply, aspp3d_init
 from dycon_paper_replication_tpu.models.unet3d import UNet3DConfig as JaxConfig
 from dycon_paper_replication_tpu.models.unet3d import init_unet3d, unet3d_apply
@@ -34,7 +33,6 @@ from dycon_paper_replication_tpu_torch.models import (
     ASPP3D,
     UNet3D,
     UNet3DConfig,
-    layers,
     net_factory_3d,
 )
 from dycon_paper_replication_tpu_torch.train.trainer import Trainer
@@ -79,44 +77,21 @@ def _aspp_module(params, state):
     return mod
 
 
-class _Masks:
-    """Both packages' dropout drawing the same numpy keep masks in order."""
-
-    def __init__(self, seed):
-        self.seed, self.rng = seed, np.random.default_rng(seed)
-
-    def reset(self):
-        self.rng = np.random.default_rng(self.seed)
-
-    def jax(self, x, rate, key, train):
-        if not train or rate == 0.0 or key is None:
-            return x
-        return jnp.where(self.rng.random(x.shape) < 1.0 - rate, x / (1.0 - rate), 0.0)
-
-    def port(self, x, rate, generator, train):
-        if not train or rate == 0.0 or generator is None:
-            return x
-        keep = torch.from_numpy(self.rng.random(tuple(x.shape)) < 1.0 - rate)
-        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
-
-
 @pytest.mark.parametrize("batch", [2, 1])
 @pytest.mark.parametrize("mode", ["eval", "train", "train_dropout"])
-def test_aspp_matches_jax(monkeypatch, batch, mode):
+def test_aspp_matches_jax(batch, mode):
+    """train_dropout: both packages draw the fused map's dropout mask from
+    one key (the port JAX's streams, ops/threefry.py)."""
     params, state = _np(aspp3d_init(jax.random.key(2), 8, 8))
     state = jax.tree.map(lambda v: v + 0.25, state)
     x = np.random.default_rng(3).normal(size=(batch, 4, 3, 2, 8)).astype(np.float32)
     train = mode != "eval"
-    masks = _Masks(4)
-    monkeypatch.setattr(jlayers, "dropout", masks.jax)
-    monkeypatch.setattr(layers, "dropout", masks.port)
     rng = jax.random.key(0) if mode == "train_dropout" else None
     want, want_state = aspp3d_apply(params, state, jnp.asarray(x), train=train, rng=rng)
-    masks.reset()
     mod = _aspp_module(params, state).train(train)
-    gen = torch.Generator() if mode == "train_dropout" else None
+    key = None if rng is None else np.asarray(jax.random.key_data(rng))
     with torch.no_grad():
-        got = mod(torch.from_numpy(x), generator=gen)
+        got = mod(torch.from_numpy(x), key=key)
     _close_rel(got, want, 1e-5)
     _, got_state = weights.state_dict_to_jax_tree({f"aspp.{k}": v for k, v in
                                                    mod.state_dict().items()})

@@ -5,9 +5,10 @@ Trainer: the port's and the JAX Trainer with --compute_dtype bfloat16 on a
 tiny Pancreas tree, 4 steps with validation replaced by the same Dice
 values (tests/test_torch_vnet_cli.py's harness): the same snapshot path,
 logged iterations, tags and checkpoints, student and teacher computing in
-bfloat16 with float32 parameters, finite losses. The two packages draw
-their noise and dropout from different generators, so their step values are
-held to JAX's by tests/test_torch_bf16_train.py, not here.
+bfloat16 with float32 parameters, finite losses. Both draw the same
+initial weights, noise and dropout from one seed (ops/threefry.py), but
+without shared kink sides bf16 rounding splits their steps, so their step
+values are held to JAX's by tests/test_torch_bf16_train.py, not here.
 
 Test CLIs: a seeded full-width UNet3D checkpoint at the flag-derived path,
 the port's test_pancreas, test_brats19 (sliding window) and test_isles22
@@ -21,6 +22,8 @@ float16-rounded image; and a label may differ only where JAX's score lies
 within that max |port - JAX| of 0.5 (or its two logits within twice it of
 each other).
 """
+
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +72,8 @@ def test_bf16_host_loop_matches_jax_trainer(tmp_path, monkeypatch):
     assert port_fired == jax_fired and jax_fired["validation"] == [2, 4]
     assert jax_fired["checkpoints"] == ["iter_2_dice_0.3", "iter_3", "iter_4_dice_0.5",
                                         "unet_3D_best_model"]
+    for side in ("jax", "port"):  # their full train states, read (~550 MB)
+        shutil.rmtree(tmp_path / side, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

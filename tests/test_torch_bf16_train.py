@@ -4,7 +4,8 @@ package's, on the CPU (the CLIs: tests/test_torch_bf16_cli.py).
 One train step of a full-width folded UNet3D (feature_scale 4, the Pancreas
 step config) and one of a full-width folded VNet (n_filters 16), dropout
 0, patch (32, 32, 16), batch 4 of which 2 labeled, from a JAX TrainState
-mapped into the port, the teacher noise drawn as the JAX step draws it.
+mapped into the port, the port's step given the JAX step's key, from which
+it draws the same teacher noise (ops/threefry.py).
 Both packages compute every conv in bfloat16 with float32 parameters, norm
 statistics, heads and losses. The port's step takes the JAX step's kink
 sides (ReLU, max pool) within train/device_check.py's margin, recorded
@@ -102,8 +103,6 @@ def test_bf16_train_step_matches_jax(model):
                             JaxScalars.make(*SCALARS))
         want = np.asarray(metrics["scalars"])
         jax.effects_barrier()
-    noise = np.array(jnp.clip(0.1 * jax.random.normal(jax.random.split(key, 3)[0],
-                                                      batch["image"].shape), -0.2, 0.2))
     tcfg = tconfig.make_config("pancreas", patch_size=PATCH, batch_size=B, labeled_bs=LBS,
                                device="cpu", compute_dtype="bfloat16", **extra)
     sides = recorded.sides()
@@ -111,8 +110,8 @@ def test_bf16_train_step_matches_jax(model):
     for state in (port, ref):
         with sides.share():
             vec, _ = build_train_step(tcfg, lambda s: tcfg.base_lr)(
-                state, {k: torch.from_numpy(v) for k, v in batch.items()}, torch.Generator(),
-                StepScalars(*SCALARS), noise=torch.from_numpy(noise))
+                state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                np.asarray(jax.random.key_data(key)), StepScalars(*SCALARS))
         out.append(vec.numpy().astype(np.float64))
     got, got64 = out
     assert sides.counts["relu_near"] > 0

@@ -17,8 +17,10 @@ Tolerances, stated before the first run:
     (that file's bound for what is computed from parameters that already
     differ: the first run held the resumed leg's third step, FeCL, to 1e-5
     and missed by 1.8e-5 relative), and the final state within
-    tests/test_torch_train_step.py's path-scaled tolerances, with the
-    teacher noise, the dropout masks and the kink sides of each JAX step
+    tests/test_torch_train_step.py's path-scaled tolerances. Each Trainer
+    starts from its own initial weights and draws its own teacher noise and
+    dropout masks (JAX's streams, ops/threefry.py: each step's key equal to
+    the JAX step's, checked); only the kink sides of each JAX step are
     shared (as tests/test_torch_ablation.py shares them);
   * the driver's own relay on the CPU: a fresh leg SIGKILLed after a save
     and a best, pack, unpack into an empty run directory (each tensor of
@@ -31,7 +33,10 @@ Tolerances, stated before the first run:
     the validation count, best val Dice, the milestone Dice and host RSS
     min / median / max that scripts/summarize_canon20k.py prints, to its
     printed digits; its loss windows give the TPU's 1.0728, 1.0966,
-    1.0913 and 1.1627;
+    1.0913 and 1.1627; its step windows on r04 against r05 are 0 at
+    steps 1-1000 (the TPU's reruns bit-identical up to r04's resume at
+    1200) and not 0 at 1001-2000, and `--compare` shows a second run's
+    summary as summarize gives it;
   * (iii) the port's make_pancreas / make_brats19 at the canonical shapes
     and seeds bit-equal to JAX's on their first two volumes;
   * (iv) the driver fails on a leg that exits non-zero without being
@@ -43,7 +48,6 @@ Tolerances, stated before the first run:
 import contextlib
 import dataclasses
 import importlib.util
-import itertools
 import json
 import os
 import re
@@ -58,18 +62,16 @@ import pytest
 import torch
 
 from dycon_paper_replication_tpu import config as jconfig
-from dycon_paper_replication_tpu.models import layers as jlayers
 from dycon_paper_replication_tpu.train import trainer as jtrainer
 from dycon_paper_replication_tpu.utils import checkpoint as jcheckpoint
 from dycon_paper_replication_tpu_torch import config as tconfig
 from dycon_paper_replication_tpu_torch import weights
 from dycon_paper_replication_tpu_torch.data import synthetic
-from dycon_paper_replication_tpu_torch.models import UNet3DConfig, layers
 from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
 from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
 from dycon_paper_replication_tpu_torch.utils import checkpoint
-from test_torch_train_step import PATCH, _compare_states, _noise
-from test_torch_vnet_train import _JaxKinkSides, _SharedMasks
+from test_torch_train_step import PATCH, _compare_states
+from test_torch_vnet_train import _JaxKinkSides
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,19 +147,16 @@ def _jax_leg(cfg, recorded, steps, crash):
     return jt
 
 
-def _port_leg(cfg, recorded, jax_steps, crash, init=None):
-    """One leg of the port's Trainer, step k taking JAX step k's noise and
-    kink sides; from the JAX weights `init` (a fresh leg) or resumed."""
+def _port_leg(cfg, recorded, jax_steps, crash):
+    """One leg of the port's Trainer, step k taking JAX step k's kink sides;
+    fresh from its own initial weights, or resumed."""
     port = ttrainer.Trainer(cfg)
-    if init is not None:
-        port.state = weights.jax_train_state_to_torch(
-            init, UNet3DConfig(layout=cfg.resolved_layout("cpu")))
     port.validate = lambda: DICE[int(port.state.step)]
     port.resumed = (int(port.state.step), port.best_performance)
     real = port.train_step
     port.steps = []
 
-    def step(state, batch, generator, scalars, noise=None):
+    def step(state, batch, key, scalars):
         if crash and len(port.steps) == CRASH_AT - 1:
             raise _Crash
         rec = jax_steps[len(port.steps)]
@@ -165,10 +164,9 @@ def _port_leg(cfg, recorded, jax_steps, crash, init=None):
                                 recorded.pool[slice(*rec["pool"])], [],
                                 [torch.from_numpy(rec["fg"])])
         with sides.share():
-            vec, diag = real(state, batch, generator, scalars,
-                             noise=torch.tensor(_noise(rec["key"], batch["image"].shape)))
+            vec, diag = real(state, batch, key, scalars)
         port.steps.append(dict(batch={k: v.numpy().copy() for k, v in batch.items()},
-                               vec=vec.numpy().copy()))
+                               vec=vec.numpy().copy(), key=np.asarray(key)))
         return vec, diag
 
     port.train_step = port.train_step_light = step
@@ -193,24 +191,19 @@ def relay(tmp_path_factory):
     jargv = argv[:argv.index("--device")] + argv[argv.index("--device") + 2:]
     jargv[jargv.index("--snapshot_root") + 1] = str(tmp / "jax")
     jcfg = jconfig.config_from_args("pancreas", jargv + ["--data_parallel", "1"])
-    masks, recorded = _SharedMasks(9), _JaxKinkSides()
+    recorded = _JaxKinkSides()
     out = dict(pcfg=pcfg, jcfg=jcfg, jax1=[], jax2=[])
-    with pytest.MonkeyPatch.context() as mp, contextlib.ExitStack() as stack:
-        mp.setattr(jlayers, "dropout", masks.jax)
-        mp.setattr(layers, "dropout", masks.port)
+    with contextlib.ExitStack() as stack:
         for patch in recorded.patches():
             stack.enter_context(patch)
         jt1 = _jax_leg(jcfg, recorded, out["jax1"], crash=True)
-        n1 = len(masks.masks)
         jt2 = _jax_leg(dataclasses.replace(jcfg, resume="auto"), recorded, out["jax2"],
                        crash=False)
         stack.close()
-        masks.queue = itertools.cycle(masks.masks[:n1])
-        port1 = _port_leg(pcfg, recorded, out["jax1"], crash=True, init=jt1.init_state)
-        masks.queue = itertools.cycle(masks.masks[n1:])
+        port1 = _port_leg(pcfg, recorded, out["jax1"], crash=True)
         port2 = _port_leg(dataclasses.replace(pcfg, resume="auto"), recorded, out["jax2"],
                           crash=False)
-    out.update(jt1=jt1, jt2=jt2, port1=port1, port2=port2, n_masks=(n1, len(masks.masks)),
+    out.update(jt1=jt1, jt2=jt2, port1=port1, port2=port2,
                saved={side: sorted(os.listdir(cfg.snapshot_path()))
                       for side, cfg in (("port", pcfg), ("jax", jcfg))})
     yield out
@@ -218,7 +211,6 @@ def relay(tmp_path_factory):
 
 
 def test_relay_resumes_at_the_same_step_and_best(relay):
-    assert relay["n_masks"] == (4, 8)  # one trace a leg: teacher and student, 2 each
     assert len(relay["jax1"]) == len(relay["port1"].steps) == CRASH_AT - 1
     for names in relay["saved"].values():
         saved = [int(m.group(1)) for m in
@@ -236,6 +228,8 @@ def test_relay_resumed_steps_match_jax(relay):
     for leg in ("1", "2"):
         port, jax_steps = relay[f"port{leg}"], relay[f"jax{leg}"]
         for i, (p, j) in enumerate(zip(port.steps, jax_steps)):
+            np.testing.assert_array_equal(p["key"], np.asarray(jax.random.key_data(j["key"])),
+                                          err_msg=f"leg {leg} step {i} key")
             for k in j["batch"]:
                 np.testing.assert_array_equal(p["batch"][k], j["batch"][k],
                                               err_msg=f"leg {leg} step {i} {k}")
@@ -377,6 +371,28 @@ def test_loss_windows_give_the_tpu_record():
     got = table.loss_windows(rows, (1000, 5000, 10000, 20000))
     assert {c: round(v, 4) for c, v in got.items()} == \
         {1000: 1.0728, 5000: 1.0966, 10000: 1.0913, 20000: 1.1627}
+
+
+def test_step_windows_and_second_run_on_the_tpu_records(capsys):
+    """The step comparison on the TPU's two records of one seed: r04 ran
+    bit-identically to r05 until its kill at 1221 and resume at 1200, after
+    which JAX's fold_in of the step count gave it other keys; and r04's
+    milestones as a second run beside the first."""
+    r04 = os.path.join(REPO, "bench_results", "r04_canonical20k_metrics.jsonl")
+    r05 = os.path.join(REPO, "bench_results", "r05_canonical20k_metrics.jsonl")
+    steps = table.step_differences(table.load_rows(r04), table.load_rows(r05))
+    assert set(steps) == set(table.STEP_SCALARS)
+    for name, by_window in steps.items():
+        assert list(by_window) == ["1-1", "2-10", "11-100", "101-1000", "1001-2000"], name
+        assert [d["n"] for d in by_window.values()] == [1, 9, 90, 900, 1000], name
+        for window in ("1-1", "2-10", "11-100", "101-1000"):
+            assert by_window[window]["max"] == 0.0, (name, window)
+        assert by_window["1001-2000"]["median"] > 0.0, name
+    out = table.main(["--dataset", "pancreas", "--work", r05, "--compare", r04])
+    assert out["second"]["port"] == table.summarize(table.load_rows(r04))
+    assert out["steps"]["loss"]["1001-2000"]["max"] == 0.0  # r05 against itself
+    shown = capsys.readouterr().out
+    assert "second run" in shown and "|second run / TPU - 1| loss" in shown
 
 
 # ---------------------------------------------------------------- (iii) the trees

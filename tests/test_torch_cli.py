@@ -43,7 +43,10 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     root = tmp_path / "Pancreas"
     _, test_names = make_pancreas(str(root), n_train=0, n_test=2, shape=(40, 36, 32), seed=3)
     snapshot = make_config("pancreas", snapshot_root=str(tmp_path / "runs")).snapshot_path()
-    params, state = weights.init_jax_tree(UNet3DConfig(), seed=0)
+    # the weights this test was calibrated on (weights.init_scheme_tree's doc):
+    # at JAX's seed-0 numbers a few near-0.5 voxels of the untrained net take
+    # other labels in the two engines and move the averages by 2e-5
+    params, state = weights.init_scheme_tree(UNet3DConfig(), seed=0)
     net = UNet3D(UNet3DConfig())
     net.load_state_dict(weights.jax_tree_to_state_dict(params, state))
     checkpoint.save_checkpoint(checkpoint.best_checkpoint_path(snapshot, "unet_3D"), net)

@@ -411,3 +411,30 @@ def test_bf16_train_steps_on_cuda_match_cpu(cuda, config, launches):
     for c, b, n in zip(counters, before, launches):
         assert c.by_dtype[torch.bfloat16] - b[torch.bfloat16] == n
         assert c.by_dtype[torch.float32] == b[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threefry_kernel_matches_plain(cuda, dtype):
+    """ops/csrc/threefry.cu against its plain torch version on the card: the
+    teacher noise within 4 ulp (erfinv), the dropout forward and backward
+    bit-equal, whole and over a data-parallel rank's rows."""
+    from dycon_paper_replication_tpu_torch.ops import threefry
+
+    key = threefry.split(threefry.key(1337), 3)[0]
+    shape, rows = (4, 16, 16, 8, 1), [1, 3]
+    noise = threefry.teacher_noise(key, shape, device=cuda)
+    want = threefry.noise_plain(key, shape, device=cuda)
+    gap = (noise.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
+    assert gap <= 4
+    assert torch.equal(threefry.teacher_noise(key, shape, rows, cuda), noise[rows])
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(4, 6, 6, 5, 16, device=cuda, generator=g).to(dtype).requires_grad_(True)
+    dy = torch.randn(x.shape, device=cuda, generator=g).to(dtype)
+    before = threefry.dropout_kernel.launches
+    y = threefry.dropout(x, key, 0.7)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    assert threefry.dropout_kernel.launches - before == 2
+    assert torch.equal(y, threefry.dropout_plain(x.detach(), key, 0.7))
+    assert torch.equal(dx, threefry.dropout_plain(dy, key, 0.7))
+    part = threefry.dropout(x.detach()[rows].contiguous(), key, 0.7, rows)
+    assert torch.equal(part, y.detach()[rows])

@@ -8,11 +8,11 @@ Tolerances, stated before the first run:
     (hd95_every 2), one device, validation replaced by 0.0 and the
     consistency weight of iteration i by 0.001 (i + 1) on both sides. Each
     package's Trainer runs at fetch_ahead 0 and at 1 (step_diagnostics
-    "cadence"), from the JAX trainer's initial weights carried into the
-    port, with the teacher noise (the JAX step's key), the dropout masks
-    and the JAX step's kink sides shared as in tests/test_torch_ablation.py
-    (but on the skipped steps, where the shared ReLU sides would zero the
-    NaN);
+    "cadence"), each from its own initial weights at the seed, drawing its
+    own teacher noise and dropout masks (JAX's streams, ops/threefry.py;
+    each step's key equal to the JAX step's), with the JAX step's kink
+    sides shared as in tests/test_torch_ablation.py (but on the skipped
+    steps, where the shared ReLU sides would zero the NaN);
     the JAX light step is its full step with the diagnostic outputs
     dropped (one compile). Equal, at each setting: the number of dispatched
     steps, which of them were skipped (at least one), which were light,
@@ -39,7 +39,6 @@ Tolerances, stated before the first run:
 """
 
 import contextlib
-import itertools
 import json
 import os
 import types
@@ -51,12 +50,11 @@ import pytest
 import torch
 
 from dycon_paper_replication_tpu import config as jconfig
-from dycon_paper_replication_tpu.models import layers as jlayers
 from dycon_paper_replication_tpu.train import trainer as jtrainer
 from dycon_paper_replication_tpu_torch import config as tconfig
 from dycon_paper_replication_tpu_torch import weights
 from dycon_paper_replication_tpu_torch.data import synthetic
-from dycon_paper_replication_tpu_torch.models import UNet3DConfig, layers
+from dycon_paper_replication_tpu_torch.models import UNet3DConfig
 from dycon_paper_replication_tpu_torch.ops import ramps
 from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
 from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
@@ -66,8 +64,8 @@ from dycon_paper_replication_tpu_torch.train.step import (
     build_train_step,
     ema_alpha,
 )
-from test_torch_train_step import _compare_states, _noise, _np
-from test_torch_vnet_train import _JaxKinkSides, _SharedMasks
+from test_torch_train_step import _compare_states, _np, _words
+from test_torch_vnet_train import _JaxKinkSides
 
 torch.set_num_threads(1)
 PATCH = (32, 32, 16)
@@ -116,12 +114,10 @@ def nan_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("nan")
     root = str(tmp / "Pancreas")
     _nan_tree(root)
-    masks, recorded = _SharedMasks(9), _JaxKinkSides()
+    recorded = _JaxKinkSides()
     out = {}
     real_full = None
     with pytest.MonkeyPatch.context() as mp, contextlib.ExitStack() as stack:
-        mp.setattr(jlayers, "dropout", masks.jax)
-        mp.setattr(layers, "dropout", masks.port)
         monitored = {"jax": [], "port": []}
         mp.setattr(jtrainer, "monitor_similarity_distributions",
                    lambda f, m, it, p: monitored["jax"].append(it))
@@ -157,17 +153,14 @@ def nan_runs(tmp_path_factory):
             jt.run()
             run.update(jax_state=_np(jt.state), js0=js0, jax_snapshot=jt.snapshot_path)
 
-            masks.queue = itertools.cycle(masks.masks)
             pcfg = tconfig.make_config("pancreas", device="cpu",
                                        **_kw(root, str(tmp / f"port{fa}"), fa))
             port = ttrainer.Trainer(pcfg)
-            port.state = weights.jax_train_state_to_torch(
-                js0, UNet3DConfig(layout=pcfg.resolved_layout("cpu")))
             port.validate = lambda: 0.0
             port._consistency_weight = _weight
 
             def port_wrap(real, light, run=run):
-                def port_step(state, batch, generator, scalars, noise=None):
+                def port_step(state, batch, key, scalars):
                     rec = run["jax_steps"][len(run["port_steps"])]
                     sides = KinkSides.given(recorded.relu[slice(*rec["relu"])],
                                             recorded.pool[slice(*rec["pool"])], [],
@@ -176,9 +169,9 @@ def nan_runs(tmp_path_factory):
                     # zero the NaN at the ReLUs
                     shared = contextlib.nullcontext() if rec["vec"][SKIPPED] else sides.share()
                     with shared:
-                        vec, diag = real(state, batch, generator, scalars, noise=torch.tensor(
-                            _noise(rec["key"], batch["image"].shape)))
+                        vec, diag = real(state, batch, key, scalars)
                     run["port_steps"].append(dict(light=light, vec=vec.numpy().copy(),
+                                                  key=np.asarray(key),
                                                   scalars=[np.float32(s) for s in scalars]))
                     return vec, diag
                 return port_step
@@ -203,6 +196,7 @@ def test_nan_schedule_matches_jax(nan_runs, fa):
     assert [r["light"] for r in port_steps] == [r["light"] for r in jax_steps]
     for i, (got, want) in enumerate(zip(port_steps, jax_steps)):
         assert got["scalars"] == want["scalars"], i
+        np.testing.assert_array_equal(got["key"], _words(want["key"]), err_msg=str(i))
         if not skipped[i]:
             np.testing.assert_allclose(got["vec"], want["vec"], rtol=1e-5, atol=1e-6,
                                        err_msg=str(i))
@@ -262,9 +256,8 @@ def test_on_device_skip_matches_jax(nan_runs):
     before = weights.jax_train_state_to_torch(js0, cfg_net)
     assert port.step.dtype == torch.int64 and port.step.dim() == 0
     step = build_train_step(pcfg, lambda s: pcfg.base_lr)
-    vec, _ = step(port, {k: torch.from_numpy(v) for k, v in batch.items()},
-                  torch.Generator().manual_seed(0), StepScalars(*scalars),
-                  noise=torch.tensor(_noise(key, image.shape)))
+    vec, _ = step(port, {k: torch.from_numpy(v) for k, v in batch.items()}, _words(key),
+                  StepScalars(*scalars))
     assert float(vec[SKIPPED]) == 1.0 and int(port.step) == 0
     for name, got, want in (
             ("student", port.student.state_dict(), before.student.state_dict()),
@@ -281,9 +274,8 @@ def test_on_device_skip_matches_jax(nan_runs):
     assert any(not np.array_equal(a, b, equal_nan=True) for a, b in
                zip(jax.tree.leaves(back.teacher_state), jax.tree.leaves(js0.teacher_state)))
     batch["image"][0, 0, 0, 0, 0] = 0.0
-    step(port, {k: torch.from_numpy(v) for k, v in batch.items()},
-         torch.Generator().manual_seed(0), StepScalars(*scalars),
-         noise=torch.tensor(_noise(key, image.shape)))
+    step(port, {k: torch.from_numpy(v) for k, v in batch.items()}, _words(key),
+         StepScalars(*scalars))
     assert int(port.step) == 1
 
 

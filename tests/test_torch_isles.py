@@ -45,7 +45,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_brats import _instance_norm_f64
-from test_torch_train_step import _batch, _compare_states, _noise, _np
+from test_torch_train_step import _batch, _compare_states, _noise, _np, _words
 
 from dycon_paper_replication_tpu import config as jconfig
 from dycon_paper_replication_tpu import data as jdata
@@ -307,9 +307,8 @@ def test_isles_train_step_matches_jax(jax_state, impl):
     sides = _jax_kink_sides(model, js0, batch, key, jcfg.teacher_train_mode)
     with sides.share():
         got, _ = build_train_step(tcfg, lambda step: tcfg.base_lr)(
-            port, {k: torch.from_numpy(v) for k, v in batch.items()},
-            torch.Generator().manual_seed(0), StepScalars(*scalars),
-            noise=torch.tensor(_noise(key, batch["image"].shape)))
+            port, {k: torch.from_numpy(v) for k, v in batch.items()}, _words(key),
+            StepScalars(*scalars))
     assert sides.counts["cross_near"] > 0
     want = np.asarray(metrics["scalars"])
     assert got[SCALAR_METRICS.index("skipped")] == 0 == want[SCALAR_METRICS.index("skipped")]

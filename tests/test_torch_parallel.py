@@ -7,8 +7,13 @@ store, one intra-op thread each; every spawning test has its own timeout
     cases of tests/test_train.py's TestMultiDeviceTrainerRules: the same
     config and the same notes; `make_mesh`'s clamps and a Shard's rows;
   * one 2-rank step against the 1-process step on the same global batch,
-    generator (so the same teacher noise and dropout masks, drawn for the
-    global batch and sliced per rank) and state: a folded UNet3D (dropout
+    threefry key (so the same teacher noise and dropout masks, each rank
+    drawing its rows of the global draw) and state, each rank taking its
+    rows of the 1-process step's kink sides (ReLUs, max pools, the row-tiled
+    FeCL's embeddings) within train/device_check.py's margin: with the
+    masks of key 5 a ReLU input of the VNet's within float32 noise of 0 took
+    the other side in a rank and moved enc0.conv0.w's momentum to 7.4x the
+    tolerance below (keys 0-4: 0.05-0.65x); a folded UNet3D (dropout
     0.3, BatchNorm in its projection head) and a folded VNet (dropout 0.5,
     train-mode BatchNorm everywhere), both at a tiny width, and the UNet3D
     again without gradient clipping (which would hide a wrong gradient
@@ -23,7 +28,8 @@ store, one intra-op thread each; every spawning test has its own timeout
   * the same 2-rank step against the JAX step on a 2-device CPU mesh (the
     batch sharded over conftest's virtual devices): the full-width folded
     UNet3D of tests/test_torch_train_step.py, its case and its tolerances
-    (the JAX noise handed to both; no kink sides to share there);
+    (the JAX step's key handed to the port, which draws the same noise from
+    it; no kink sides to share there);
   * `train_pancreas --data_parallel 2` for 2 iterations against
     `--data_parallel 1` (its base_lr halved, which the multi-device rules
     double back): the same logged losses, one log and one set of
@@ -41,7 +47,9 @@ from dycon_paper_replication_tpu_torch import config as tconfig
 from dycon_paper_replication_tpu_torch import parallel, weights
 from dycon_paper_replication_tpu_torch.data import synthetic
 from dycon_paper_replication_tpu_torch.models import UNet3DConfig, VNetConfig, build_model
+from dycon_paper_replication_tpu_torch.ops import threefry
 from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
+from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
 from dycon_paper_replication_tpu_torch.train.state import TrainState, create_train_state
 from dycon_paper_replication_tpu_torch.train.step import (
     SCALAR_METRICS,
@@ -72,13 +80,15 @@ def _batch(seed):
 
 def _case(net_cfg, seed, dataset="pancreas", scalars=SCALARS, **cfg):
     """A step's inputs: the model config, a seeded initial state, the global
-    batch, no noise (the step draws it), the dataset's step config with
-    TrainConfig overrides, and the step scalars."""
+    batch, the step's threefry key (the step draws its noise from it), the
+    dataset's step config with TrainConfig overrides, and the step
+    scalars."""
     params, mstate = weights.init_jax_tree(net_cfg, seed=seed)
     student = build_model(net_cfg)
     student.load_state_dict(weights.jax_tree_to_state_dict(params, mstate))
     return dict(net_cfg=net_cfg, state=_state_dicts(create_train_state(student)),
-                batch=_batch(seed), noise=None, cfg=cfg, dataset=dataset, scalars=scalars)
+                batch=_batch(seed), key=threefry.key(5), cfg=cfg, dataset=dataset,
+                scalars=scalars)
 
 
 def _state_dicts(state: TrainState) -> dict:
@@ -100,8 +110,12 @@ def _train_state(net_cfg, sd: dict) -> TrainState:
     return state
 
 
-def _run_steps(cases: dict, shard) -> dict:
-    """One step of each case, on this rank's rows with `shard`."""
+def _run_steps(cases: dict, shard, sides: dict | None = None) -> dict:
+    """One step of each case, on this rank's rows with `shard`. Without
+    `sides` the step's kink sides (ReLUs, max pools, the row-tiled FeCL's
+    embeddings: train/device_check.py's KinkSides) are recorded and returned;
+    with the 1-process step's, the step takes this rank's rows of them
+    within that margin."""
     out = {}
     for name, case in cases.items():
         state = _train_state(case["net_cfg"], case["state"])
@@ -110,16 +124,25 @@ def _run_steps(cases: dict, shard) -> dict:
                                   **case.get("cfg", {}))
         step = build_train_step(cfg, lambda s: cfg.base_lr, shard)
         batch = parallel.shard_batch(shard, case["batch"])
-        noise = None if case["noise"] is None else torch.from_numpy(case["noise"])
-        vec, _ = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                      torch.Generator().manual_seed(5),
-                      StepScalars(*case.get("scalars", SCALARS)), noise=noise)
-        out[name] = dict(vec=vec.numpy(), state=_state_dicts(state))
+        if sides is None:
+            kinks = KinkSides()
+            context = kinks.record()
+        else:
+            relu, pool, fecl = sides[name]
+            rows = list(shard.rows)
+            kinks = KinkSides.given([r[rows] for r in relu], [p[rows] for p in pool],
+                                    [(f[rows], None if t is None else t[rows]) for f, t in fecl])
+            context = kinks.share()
+        with context:
+            vec, _ = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          case["key"], StepScalars(*case.get("scalars", SCALARS)))
+        out[name] = dict(vec=vec.numpy(), state=_state_dicts(state),
+                         sides=(kinks._relu, kinks._pool, kinks._fecl))
     return out
 
 
-def _rank_steps(rank, world, device, cases):
-    return _run_steps(cases, parallel.Shard(rank, world, B, LBS))
+def _rank_steps(rank, world, device, cases, sides):
+    return _run_steps(cases, parallel.Shard(rank, world, B, LBS), sides)
 
 
 def _assert_states_close(got: dict, want: dict):
@@ -135,7 +158,7 @@ def _assert_states_close(got: dict, want: dict):
 def jax_case():
     """tests/test_torch_train_step.py's case: the JAX model (full-width
     folded UNet3D, dropout 0), config, step and state (key 11), its first
-    batch and the JAX step's teacher noise for key 21."""
+    batch and the JAX step's key 21."""
     import jax
 
     from dycon_paper_replication_tpu import config as jconfig
@@ -146,7 +169,6 @@ def jax_case():
     from dycon_paper_replication_tpu.train.state import make_optimizer
     from dycon_paper_replication_tpu.train.step import build_train_step as jax_build_step
     from test_torch_train_step import _batch as step_batch
-    from test_torch_train_step import _noise
 
     model = Model(JaxNetConfig(dropout_rate=0.0, layout="folded"), init_unet3d, unet3d_apply)
     cfg = jconfig.make_config("pancreas", patch_size=PATCH, batch_size=B, labeled_bs=LBS)
@@ -156,8 +178,7 @@ def jax_case():
     step = jax.jit(jax_build_step(model, optimizer, cfg, diagnostics=False))
     key = jax.random.key(21)
     batch = step_batch(1)
-    return dict(cfg=cfg, step=step, js0=js0, key=key, batch=batch,
-                noise=_noise(key, batch["image"].shape))
+    return dict(cfg=cfg, step=step, js0=js0, key=key, batch=batch)
 
 
 @pytest.fixture(scope="module")
@@ -192,11 +213,13 @@ def spawned(jax_case):
                        compute_dtype="bfloat16")
            for name, dtype in (("unet_bf16", torch.bfloat16), ("unet_bf16_f64", torch.float64))},
         "jax": dict(net_cfg=full, state=_state_dicts(weights.jax_train_state_to_torch(js0, full)),
-                    batch=jax_case["batch"], noise=jax_case["noise"]),
+                    batch=jax_case["batch"], key=np.asarray(jax.random.key_data(jax_case["key"]))),
     }
     ranked = {k: v for k, v in cases.items() if not k.endswith("_f64")}  # 1 process only
-    two = parallel.launch(_rank_steps, 2, args=(ranked,), threads=1, timeout=SPAWN_TIMEOUT)
     one = _run_steps(cases, None)
+    sides = {name: one[name].pop("sides") for name in ranked}
+    two = parallel.launch(_rank_steps, 2, args=(ranked, sides), threads=1,
+                          timeout=SPAWN_TIMEOUT)
     return cases, one, two
 
 

@@ -6,20 +6,23 @@ Tolerances, the JAX package's own for its remat step against its plain one
 (tests/test_train.py:306-320), stated before the first run: from one state
 on one batch, the loss within rtol 1e-6 and every parameter within atol
 1e-6; on top of them, bit-equal: the BatchNorms' running statistics (the
-recompute must not move them a second time), the teacher's, and the dropout
-generator's state after the step (the recompute replays the forward's
-masks and puts the generator back where the step without remat leaves
-it). Cases, patch (32, 32, 16), batch 4 of which 2 labeled, each model at
-its defaults with dropout on (the teacher noise and both dropouts drawn
-from one explicit generator): the UNet3D in the folded layout (its K1
+recompute must not move them a second time) and the teacher's; and the
+recompute draws its dropout masks from the forward's keys (the draws are
+counter-based: the same keys give the same masks), so the keys of the
+step's dropout calls are the step without remat's, the student's twice.
+Cases, patch (32, 32, 16), batch 4 of which 2 labeled, each model at its
+defaults with dropout on (the teacher noise and both dropouts drawn from
+one threefry key): the UNet3D in the folded layout (its K1
 twin, FoldedConv3Fn, under the checkpoint), the VNet (31 BatchNorms,
 folded) and the UNet3D with ASPP (NDHWC). The student forward runs twice
 with remat and once without. Against JAX (tests/test_torch_train_step.py's
-case and tolerances: the folded UNet3D with dropout 0, the JAX step's
-noise): the port's remat step after the JAX package's remat step, the 8
+case and tolerances: the folded UNet3D with dropout 0, the JAX step's key,
+so its noise): the port's remat step after the JAX package's remat step, the 8
 scalars within rtol 1e-5 + atol 1e-6 and the state within that file's
 path-scaled tolerances. A data-parallel remat step is refused.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -38,9 +41,10 @@ from dycon_paper_replication_tpu.train.step import build_train_step as jax_build
 from dycon_paper_replication_tpu_torch import config as tconfig
 from dycon_paper_replication_tpu_torch import parallel, weights
 from dycon_paper_replication_tpu_torch.models import UNet3DConfig, build_model, model_config
+from dycon_paper_replication_tpu_torch.ops import threefry
 from dycon_paper_replication_tpu_torch.train.state import create_train_state
 from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
-from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _noise, _np
+from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _np, _words
 
 torch.set_num_threads(1)
 SCALARS = (5.0, 0.1 * np.exp(-5.0), 1.3, 0.3)
@@ -66,13 +70,19 @@ def test_remat_matches_none(name):
                                   device="cpu", model=case["model"],
                                   use_aspp=case.get("use_aspp", False), remat=remat)
         state = _state(case)
-        calls = []
+        calls, keys = [], []
         state.student.register_forward_pre_hook(lambda *_: calls.append(1))
-        gen = torch.Generator().manual_seed(7)
-        vec, _ = build_train_step(cfg, lambda s: cfg.base_lr)(
-            state, {k: torch.from_numpy(v) for k, v in _batch(1).items()}, gen,
-            StepScalars(*SCALARS))
-        runs[remat] = (vec, state, gen.get_state(), len(calls))
+        real = threefry.dropout
+
+        def dropout(x, k, keep, rows=None):
+            keys.append(tuple(int(w) for w in k))
+            return real(x, k, keep, rows)
+
+        with mock.patch.object(threefry, "dropout", dropout):
+            vec, _ = build_train_step(cfg, lambda s: cfg.base_lr)(
+                state, {k: torch.from_numpy(v) for k, v in _batch(1).items()},
+                threefry.key(7), StepScalars(*SCALARS))
+        runs[remat] = (vec, state, keys, len(calls))
     (vec0, s0, g0, n0), (vec1, s1, g1, n1) = runs["none"], runs["full"]
     assert (n0, n1) == (1, 2)
     assert not vec0[-1] and not vec1[-1]
@@ -87,7 +97,8 @@ def test_remat_matches_none(name):
     assert stats or name == "unet_3D"
     for k, b0, b1 in stats:
         assert torch.equal(b0, b1), k
-    assert torch.equal(g0, g1)
+    half = len(g0) // 2  # the teacher's calls, then the student's
+    assert half and g1 == g0 + g0[half:]
 
 
 def test_remat_refused_with_data_parallel():
@@ -115,7 +126,7 @@ def test_remat_matches_jax_remat():
     port = weights.jax_train_state_to_torch(_np(js0), UNet3DConfig(dropout_rate=0.0,
                                                                   layout="folded"))
     got, _ = build_train_step(tcfg, lambda s: tcfg.base_lr)(
-        port, {k: torch.from_numpy(v) for k, v in batch.items()}, torch.Generator().manual_seed(0),
-        StepScalars(*SCALARS), noise=torch.tensor(_noise(key, batch["image"].shape)))
+        port, {k: torch.from_numpy(v) for k, v in batch.items()}, _words(key),
+        StepScalars(*SCALARS))
     np.testing.assert_allclose(got.numpy(), np.asarray(metrics["scalars"]), rtol=1e-5, atol=1e-6)
     _compare_states(port, [_np(js1)], _np(js0), cfg.base_lr)

@@ -2,9 +2,9 @@
 
 One full-width UNet3D (feature_scale 4, filters 16..256) in the folded
 layout with dropout 0, patch (32, 32, 16), batch 4 of which 2 labeled. The
-JAX TrainState goes through the weight mapper into the port; the teacher
-noise is drawn the way the JAX step draws it (the first key of
-jax.random.split(rng, 3)) and handed to the port's step. The JAX step is
+JAX TrainState goes through the weight mapper into the port; the port's
+step gets the JAX step's key and draws the same teacher noise from it (the
+first key of its split in three, ops/threefry.py). The JAX step is
 built and compiled once per module (it takes tens of seconds on a CPU).
 
 Tolerances. The gradient of a conv in front of a norm is a sum over all
@@ -109,14 +109,18 @@ def _noise(key, shape):
     return np.asarray(jnp.clip(0.1 * jax.random.normal(noise_key, shape, jnp.float32), -0.2, 0.2))
 
 
+def _words(key) -> np.ndarray:
+    """A JAX key's two words: the port's threefry key (ops/threefry.py)."""
+    return np.asarray(jax.random.key_data(key))
+
+
 def _run_both(jax_step, js, port, batch, key, scalars):
     """One JAX step and one port step from equal states on the same inputs."""
     _, step, _ = jax_step
     new_js, metrics = step(js, {k: jnp.asarray(v) for k, v in batch.items()}, key,
                            JaxScalars.make(*scalars))
     got, _ = _port_step()(port, {k: torch.from_numpy(v) for k, v in batch.items()},
-                          torch.Generator().manual_seed(0), StepScalars(*scalars),
-                          noise=torch.tensor(_noise(key, batch["image"].shape)))
+                          _words(key), StepScalars(*scalars))
     return new_js, np.asarray(metrics["scalars"]), got.numpy()
 
 

@@ -20,8 +20,8 @@ before their first run:
   * a JAX Trainer run of 2 steps (patch 32x32x16, batch 4 of which 2
     labeled, full width: the trainer has no width flag) saves `iter_2`;
     converted, the port's Trainer resumes it bit-exactly at step 2, and one
-    more step on each side (dropout 0, the same batch, noise and the
-    trainer's scalars) agrees within tests/test_torch_train_step.py's
+    more step on each side (dropout 0, the same batch, the JAX step's key,
+    from which the port draws the same noise, and the trainer's scalars) agrees within tests/test_torch_train_step.py's
     tolerances. The port's step takes the JAX step's side at its kinks
     within train/device_check.py's margin (ReLUs and max pools recorded
     inside the jitted JAX step, as in tests/test_torch_vnet_train.py, and
@@ -37,6 +37,7 @@ collects on a machine with torch alone.
 import contextlib
 import dataclasses
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -66,7 +67,9 @@ def _trained_state_dict():
 
 @pytest.fixture(scope="module")
 def archive_states(tmp_path_factory):
-    """{member: (the JAX TrainState restored by orbax, the port's file)}."""
+    """{member: (the JAX TrainState restored by orbax, the port's file)}; the
+    extracted orbax directories are removed once read, the port's files
+    after the module's tests."""
     pytest.importorskip("orbax.checkpoint")
     from dycon_paper_replication_tpu_torch.config import make_config
 
@@ -75,9 +78,12 @@ def archive_states(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("archive")
     out = {}
     for member in ("unet_3D_best_model", "iter_20000"):
-        js = conv.restore_jax(conv.extract(ARCHIVE, member, str(tmp)), cfg)
+        extracted = conv.extract(ARCHIVE, member, str(tmp))
+        js = conv.restore_jax(extracted, cfg)
+        shutil.rmtree(extracted, ignore_errors=True)
         out[member] = (js, conv.save_port(js, member, cfg, str(tmp / f"{member}.pt")))
-    return out
+    yield out
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_trained_checkpoint_loads_strictly():
@@ -134,6 +140,7 @@ def test_trained_forward_matches_jax(archive_states, tmp_path):
     with open(os.path.join(root, "test1.list")) as f:
         first = f.readline().strip()
     image = np.load(os.path.join(root, "Pancreas_data", first))["image"]
+    shutil.rmtree(root)  # the canonical tree (~720 MB), read
     assert image.shape == CANONICAL["shape"]
     lo = [(s - 96) // 2 for s in image.shape]
     x = np.ascontiguousarray(image[lo[0]:lo[0] + 96, lo[1]:lo[1] + 96,
@@ -179,7 +186,7 @@ def test_jax_run_resumed_by_port(tmp_path):
     from dycon_paper_replication_tpu_torch.train.device_check import KinkSides
     from dycon_paper_replication_tpu_torch.train.step import StepScalars
     from dycon_paper_replication_tpu_torch.utils import checkpoint
-    from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _noise
+    from test_torch_train_step import B, LBS, PATCH, _batch, _compare_states, _words
     from test_torch_vnet_train import _JaxKinkSides
 
     root = str(tmp_path / "data")
@@ -206,7 +213,8 @@ def test_jax_run_resumed_by_port(tmp_path):
                          jax.tree.leaves(js2)):
         np.testing.assert_array_equal(got, want)
 
-    # one more step on each side: dropout off, the same batch and noise, and
+    # one more step on each side: dropout off, the same batch and key (so
+    # noise), and
     # the port trainer's scalars at iteration 2 (equal to the JAX trainer's:
     # tests/test_torch_trainer_loop.py)
     for net in (port.state.student, port.state.teacher):
@@ -232,8 +240,7 @@ def test_jax_run_resumed_by_port(tmp_path):
     sides = KinkSides.given(recorded.relu, recorded.pool, [], [torch.from_numpy(fg)])
     with sides.share():
         got, _ = port.train_step(port.state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                                 torch.Generator().manual_seed(0), StepScalars(*scalars),
-                                 noise=torch.tensor(_noise(key, batch["image"].shape)))
+                                 _words(key), StepScalars(*scalars))
     print(f"kink sides {sides.counts}")
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     assert port.state.step == int(js3.step) == 3

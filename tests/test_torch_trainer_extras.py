@@ -66,7 +66,7 @@ from dycon_paper_replication_tpu_torch.ops import bits, metrics
 from dycon_paper_replication_tpu_torch.train import trainer as ttrainer
 from dycon_paper_replication_tpu_torch.train.step import StepScalars, build_train_step
 from dycon_paper_replication_tpu_torch.utils import checkpoint, monitor, profiling
-from test_torch_train_step import B, LBS, PATCH, _batch, _noise, _np
+from test_torch_train_step import B, LBS, PATCH, _batch, _np, _words
 
 torch.set_num_threads(1)
 
@@ -187,14 +187,12 @@ def diag_case():
                                device="cpu")
     port_step = build_train_step(tcfg, lambda step: tcfg.base_lr)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    noise = torch.tensor(_noise(key, batch["image"].shape))
     cfg_net = UNet3DConfig(dropout_rate=0.0, layout="folded")
     with torch.no_grad():  # the student's foreground probability in the step's forward
         student = weights.jax_train_state_to_torch(js0, cfg_net).student.train()
         out = {"p_fg": torch.softmax(student(tbatch["image"])[1], -1)[..., 1]}
     port = weights.jax_train_state_to_torch(js0, cfg_net)
-    out["step"] = port_step(port, tbatch, torch.Generator().manual_seed(0),
-                            StepScalars(*scalars), noise=noise)
+    out["step"] = port_step(port, tbatch, _words(key), StepScalars(*scalars))
     return dict(jax=jm, port=out, label=batch["label"])
 
 

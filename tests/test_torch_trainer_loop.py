@@ -3,9 +3,11 @@
 For Pancreas, BraTS-2019 and ISLES-2022 on tiny synthetic trees (patch
 32x32x16, batch 2 of which 1 labeled), each package's Trainer is built from
 the same config and run for 12 steps at val_every 4 and save_every 6, with
-validation replaced on both sides by the same sequence of Dice values (the
-two runs' trajectories differ: the packages draw noise and dropout from
-different generators), so that the best-model saves are decided alike.
+validation replaced on both sides by the same sequence of Dice values, so
+that the best-model saves are decided alike and this file holds the host
+loop alone (both draw JAX's initial weights, noise and dropout from one
+seed, ops/threefry.py, and agree step by step only to float32 summation
+order: tests/test_torch_jax_random.py holds their scalars).
 Equal: iters_per_epoch, max_epoch, hd95_every, the snapshot path, the
 checkpoint names (the port's carry ".pt"), the iterations on which
 train-HD95, the similarity monitor, validation and the saves fire, and the
@@ -16,6 +18,7 @@ iterations.
 
 import json
 import os
+import shutil
 
 import jax  # noqa: F401  (the JAX Trainer's backend, on the CPU)
 import numpy as np
@@ -95,6 +98,8 @@ def test_host_loop_matches_jax_trainer(tmp_path, monkeypatch, dataset):
     got = [port._consistency_weight(i) for i in range(400)]
     want = [jax_trainer._consistency_weight(i) for i in range(400)]
     np.testing.assert_allclose(got, want, rtol=1e-7, atol=0)
+    for side in ("jax", "port"):  # their full train states, read (~690 MB)
+        shutil.rmtree(tmp_path / side, ignore_errors=True)
 
 
 def test_port_diagnostics_cadence(monkeypatch):

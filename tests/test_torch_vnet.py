@@ -17,11 +17,12 @@ them. Tolerances, each stated where it is used:
   * gradients of the folded VNet against the plain autograd and against
     jax.grad: tests/test_vnet_folded.py's atol 2e-4 + rtol 1e-2 and a
     cosine above 1 - 1e-5.
-The weight mapper must round-trip exactly. Dropout parity: each package's
-`layers.dropout` is replaced by one that draws the same numpy masks in call
-order, and one train-mode forward with dropout on is compared, for the
-UNet3D and the VNet, plain and folded (the folded VNet's last mask is drawn
-on the phase-1 folded tensor in both packages, tests/test_vnet_folded.py).
+The weight mapper must round-trip exactly. Dropout parity: each package
+draws its own masks from one key (the port JAX's streams, ops/threefry.py),
+and one train-mode forward with dropout on is compared, for the UNet3D and
+the VNet, plain and folded (the folded VNet's last mask is drawn on the
+phase-1 folded tensor in both packages, tests/test_vnet_folded.py), the
+calls' shapes equal.
 compute_sdf is held to the JAX package's to 1e-6.
 """
 
@@ -291,36 +292,31 @@ def test_factory_builds_vnet_and_ignores_aspp():
 
 # --- dropout parity --------------------------------------------------------
 
-class _SharedMasks:
-    """Both packages' layers.dropout drawing the same numpy keep masks, one
-    per call in call order (identity where the layer would be)."""
+class _DropoutShapes:
+    """Both packages' layers.dropout, unchanged, recording the shape of each
+    call that drops out (the JAX one at its trace)."""
 
-    def __init__(self, seed):
-        self.rng = np.random.default_rng(seed)
-        self.masks = []
-
-    def _mask(self, shape, rate):
-        m = self.rng.random(shape) < 1.0 - rate
-        self.masks.append(m)
-        return m
+    def __init__(self):
+        self.jax_shapes, self.port_shapes = [], []
+        self.real_jax, self.real_port = jlayers.dropout, layers.dropout
 
     def jax(self, x, rate, key, train):
-        if not train or rate == 0.0 or key is None:
-            return x
-        return jnp.where(self._mask(x.shape, rate), x / (1.0 - rate), 0.0).astype(x.dtype)
+        if train and rate != 0.0 and key is not None:
+            self.jax_shapes.append(tuple(x.shape))
+        return self.real_jax(x, rate, key, train)
 
-    def port(self, x, rate, generator, train):
-        if not train or rate == 0.0 or generator is None:
-            return x
-        keep = torch.from_numpy(self._mask(tuple(x.shape), rate))
-        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
+    def port(self, x, rate, key, train):
+        if train and rate != 0.0 and key is not None:
+            self.port_shapes.append(tuple(x.shape))
+        return self.real_port(x, rate, key, train)
 
 
 @pytest.mark.parametrize("model", ["unet_3D", "vnet"])
 @pytest.mark.parametrize("layout", ["NDHWC", "folded"])
 def test_dropout_on_matches_jax(jax_vnet, image, monkeypatch, model, layout):
     """One train-mode forward with dropout on (0.3 in the UNet3D, 0.5 in the
-    VNet) through both packages with the same masks: 1e-3 x max|output|
+    VNet) through both packages from the same key, each drawing its own
+    masks (JAX's streams in the port, ops/threefry.py): 1e-3 x max|output|
     (the train-mode tolerance above)."""
     if model == "vnet":
         params, state = jax_vnet
@@ -331,15 +327,15 @@ def test_dropout_on_matches_jax(jax_vnet, image, monkeypatch, model, layout):
         params, state = _np(jax.jit(init_unet3d, static_argnums=1)(jax.random.key(3), jcfg))
         apply, net = unet3d_apply, UNet3D(UNet3DConfig(feature_scale=16, layout=layout))
         net.load_state_dict(weights.jax_tree_to_state_dict(params, state))
-    masks = _SharedMasks(7)
-    monkeypatch.setattr(jlayers, "dropout", masks.jax)
+    calls = _DropoutShapes()
+    monkeypatch.setattr(jlayers, "dropout", calls.jax)
+    monkeypatch.setattr(layers, "dropout", calls.port)
     want, _ = jax.jit(lambda p, s, x: apply(p, s, x, jcfg, train=True, rng=jax.random.key(0)))(
         params, state, jnp.asarray(image))
-    jax_masks, masks.rng, masks.masks = masks.masks, np.random.default_rng(7), []
-    monkeypatch.setattr(layers, "dropout", masks.port)
     with torch.no_grad():
-        got = net.train()(torch.from_numpy(image), generator=torch.Generator())
-    assert len(jax_masks) == 2 and [m.shape for m in masks.masks] == [m.shape for m in jax_masks]
+        got = net.train()(torch.from_numpy(image),
+                          key=np.asarray(jax.random.key_data(jax.random.key(0))))
+    assert len(calls.jax_shapes) == 2 and calls.port_shapes == calls.jax_shapes
     for g, w in zip(got, want):
         _close_rel(g, w, 1e-3)
 

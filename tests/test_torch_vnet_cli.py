@@ -14,6 +14,7 @@ sliding window takes its plain accumulator for the VNet.
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -95,6 +96,8 @@ def test_vnet_host_loop_matches_jax_trainer(tmp_path, monkeypatch):
     meta = checkpoint.restore_checkpoint(
         checkpoint.best_checkpoint_path(port.snapshot_path, "vnet"), VNet(VNetConfig()))
     assert meta["step"] == 8 and meta["best_dice"] == 0.5
+    for side in ("jax", "port"):  # their full train states, read (~860 MB)
+        shutil.rmtree(tmp_path / side, ignore_errors=True)
 
 
 # --- the test CLIs ---------------------------------------------------------

@@ -5,11 +5,11 @@ tests/test_torch_vnet_cli.py).
 One step of a full-width folded VNet (n_filters 16, dropout 0)
 and one of a full-width folded UNet3D with ASPP, each from a JAX TrainState
 mapped into the port, patch (32, 32, 16), batch 4 of which 2 labeled, the
-teacher noise drawn as the JAX step draws it. ASPP's dropout (rate 0.5,
-fixed) draws the same numpy masks in both packages: the JAX step's two
-calls (teacher, then student) at its trace, handed to the port's in that
-order. The port's step takes the JAX step's kink sides (ReLU, max pool)
-within train/device_check.py's margin, recorded inside the jitted JAX step
+port's step given the JAX step's key, from which it draws the same teacher
+noise and ASPP's dropout masks (rate 0.5, fixed; the teacher's and the
+student's calls) as the JAX step (ops/threefry.py). The port's step takes
+the JAX step's kink sides (ReLU, max pool) within train/device_check.py's
+margin, recorded inside the jitted JAX step
 (`_JaxKinkSides`): without them, the few dozen ReLUs of this case that lie
 within float32 noise of 0 move the VNet's decoder weight gradients (in
 front of train-mode BatchNorms) by up to 20x the tolerance below, as much
@@ -102,8 +102,8 @@ class _SharedMasks:
         self.masks.append(m)
         return jnp.where(m, x / (1.0 - rate), 0.0).astype(x.dtype)
 
-    def port(self, x, rate, generator, train):
-        if not train or rate == 0.0 or generator is None:
+    def port(self, x, rate, key, train):
+        if not train or rate == 0.0 or key is None:
             return x
         m = next(self.queue)
         assert m.shape == tuple(x.shape)
@@ -174,9 +174,17 @@ def test_train_step_matches_jax(monkeypatch, model):
         apply, init = unet3d_apply, init_unet3d
         net_cfg = UNet3DConfig(dropout_rate=0.0, layout="folded", use_aspp=True)
         extra = dict(use_aspp=True)
-    masks = _SharedMasks(9)
-    monkeypatch.setattr(jlayers, "dropout", masks.jax)
-    monkeypatch.setattr(layers, "dropout", masks.port)
+    calls = {"jax": 0, "port": 0}
+    real_jax, real_port = jlayers.dropout, layers.dropout
+
+    def counted(side, real):
+        def dropout(x, rate, key, train):
+            calls[side] += train and rate != 0.0 and key is not None
+            return real(x, rate, key, train)
+        return dropout
+
+    monkeypatch.setattr(jlayers, "dropout", counted("jax", real_jax))
+    monkeypatch.setattr(layers, "dropout", counted("port", real_port))
 
     jcfg = jconfig.make_config("pancreas", patch_size=PATCH, batch_size=B, labeled_bs=LBS,
                                **extra)
@@ -199,18 +207,15 @@ def test_train_step_matches_jax(monkeypatch, model):
                             JaxScalars.make(*SCALARS))
         want = np.asarray(metrics["scalars"])
         jax.effects_barrier()
-    assert len(masks.masks) == (2 if model == "aspp" else 0)  # teacher, student
-    masks.queue = iter(masks.masks)
-    noise = np.array(jnp.clip(0.1 * jax.random.normal(jax.random.split(key, 3)[0],
-                                                      batch["image"].shape), -0.2, 0.2))
+    assert calls["jax"] == (2 if model == "aspp" else 0)  # teacher, student (at the trace)
     tcfg = tconfig.make_config("pancreas", patch_size=PATCH, batch_size=B, labeled_bs=LBS,
                                device="cpu", **extra)
     sides = recorded.sides()
     with sides.share():
         got, _ = build_train_step(tcfg, lambda s: tcfg.base_lr)(
-            port, {k: torch.from_numpy(v) for k, v in batch.items()}, torch.Generator(),
-            StepScalars(*SCALARS), noise=torch.from_numpy(noise))
-    assert next(masks.queue, None) is None and sides.counts["relu_near"] > 0
+            port, {k: torch.from_numpy(v) for k, v in batch.items()},
+            np.asarray(jax.random.key_data(key)), StepScalars(*SCALARS))
+    assert calls["port"] == calls["jax"] and sides.counts["relu_near"] > 0
     assert got[SCALAR_METRICS.index("skipped")] == 0 == want[SCALAR_METRICS.index("skipped")]
     dice = SCALAR_METRICS.index("train_dice")
     others = [i for i in range(len(SCALAR_METRICS)) if i != dice]
